@@ -1,0 +1,18 @@
+"""phi3.5-moe-42b-a6.6b — 16-expert top-2 MoE [hf:microsoft/Phi-3.5-MoE-instruct].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=6400 vocab=32064, MoE 16e top-2.
+"""
+from repro_torch.config import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    arch_type="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=6400,
+    vocab=32064,
+    head_dim=128,
+    moe=MoEConfig(num_experts=16, top_k=2, d_expert=6400),
+)

@@ -1,0 +1,17 @@
+"""yi-6b — dense llama-arch GQA [arXiv:2403.04652].
+
+32L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000.
+"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    arch_type="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab=64000,
+    head_dim=128,
+)

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
+so a build takes seconds. Libraries land in ``_build/<hash>/`` beside this
+file (listed in ``.gitignore``), keyed by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one is reused.
+Nothing is compiled at import: the first launch builds what it needs, and
+``build_all`` builds every source at once, one ``nvcc`` process each, all
+started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("router_utility", "decode_attention")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)"
+                       " — the CUDA kernels are built on the GPU machine")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_ROOT / h / f"lib{name}.so"
+
+
+def _start(name: str, out: Path) -> subprocess.Popen:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, out: Path, proc: subprocess.Popen) -> str:
+    log, _ = proc.communicate()
+    out.with_suffix(".log").write_text(log)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named source that is not built yet, one ``nvcc`` per
+    source, all running at once; returns {name: compiler log} for the
+    ones compiled (ptxas register and shared-memory reports included)."""
+    with _lock:
+        todo = {n: _lib_path(n) for n in names}
+        todo = {n: p for n, p in todo.items() if not p.exists()}
+        procs = {n: _start(n, p) for n, p in todo.items()}
+        return {n: _finish(n, todo[n], proc) for n, proc in procs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

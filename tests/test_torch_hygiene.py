@@ -1,0 +1,82 @@
+"""The PyTorch port stands alone: no module of ``src/repro_torch`` nor
+``chip_smoke.py`` imports JAX, jaxlib or the JAX package (``repro``), none
+imports msgpack at module level (the GPU machine has none), and the entry
+points run on the CPU only when asked to."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imports(tree):
+    """(module name, at module level) for every import in the tree."""
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or "", id(node) in top
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax_or_the_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, top_level in _imports(tree):
+        root = name.split(".")[0]
+        assert root not in BANNED, f"{path.name} imports {name}"
+        assert not (root == "msgpack" and top_level), (
+            f"{path.name} imports msgpack at module level")
+
+
+def test_port_has_every_slice_module():
+    want = ["config.py", "configs/__init__.py", "data/encoder.py",
+            "kernels/ref.py", "kernels/router_utility.py",
+            "kernels/decode_attention.py", "kernels/ops.py",
+            "kernels/csrc/router_utility.cu",
+            "kernels/csrc/decode_attention.cu", "models/layers.py",
+            "models/attention.py", "models/model.py", "serve/kv_cache.py",
+            "serve/engine.py", "serve/gateway.py", "core/mlp_router.py",
+            "routers/base.py", "routers/registry.py", "routers/mlp.py",
+            "convert.py"]
+    pkg = ROOT / "src" / "repro_torch"
+    assert [w for w in want if not (pkg / w).is_file()] == []
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
+    from repro_torch import routers
+    from repro_torch.config import ModelConfig, RouterConfig
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.gateway import RoutedServer, make_pool_model
+
+    TINY = ModelConfig(name="tiny", arch_type="dense", n_layers=1, d_model=32,
+                       n_heads=2, n_kv_heads=1, d_ff=64, vocab=97,
+                       head_dim=16)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(0, TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pool_model("tiny", TINY, 0.1)
+    rcfg = RouterConfig(d_emb=16, num_models=1, hidden=(8,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        routers.make("mlp", rcfg).init(0)
+    pool = [make_pool_model("tiny", TINY, 0.1, device="cpu")]
+    router = routers.make("mlp", rcfg).init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RoutedServer(pool, router)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(pool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(pool, device="cuda")
+    # with device="cpu" everything runs
+    srv = RoutedServer(pool, router, device="cpu")
+    out = srv.generate(["hello there"], max_new_tokens=2)
+    assert len(out["results"][0]["tokens"]) == 2
