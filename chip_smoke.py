@@ -5,14 +5,25 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc``, holds each kernel against
-its plain PyTorch version at the serving shapes and times both, then drives
-the port's main path — routed serving of qwen2-1.5b and yi-6b at full
-published width and depth, random bf16 weights from a seeded generator —
-through each path of ``RoutedServer`` (``generate`` on the paged engine,
-``submit`` / ``step`` / ``drain``, each lane alone, the uniform slot pool,
-the per-call path), with the launch counters reset just before each path
-and read just after it. Last it checks that engine tokens equal
-per-request tokens on the reduced f32 models.
+its plain PyTorch version (at the serving shapes, at the shapes of the
+reference's kernel tests and at the router fit's shapes) and times both,
+then drives the port's two main paths, with the launch counters reset
+just before each path and read just after it:
+
+* routed serving of qwen2-1.5b and yi-6b at full published width and
+  depth, random bf16 weights from a seeded generator, through each path
+  of ``RoutedServer`` (``generate`` on the paged engine, ``submit`` /
+  ``step`` / ``drain``, each lane alone, the uniform slot pool, the
+  per-call path), routed by the MLP router and then by a K-means router;
+* the federated router fit at the paper's router width (d_emb 768, 11
+  models, 10 clients, 36,000 synthetic queries, ``FedConfig()``):
+  ``fit_federated`` and ``fit_local`` of "mlp" and "kmeans", each
+  evaluated on the global test split and routed, a repeated K-means fit
+  (bit-identical) and a K-means fit on the plain versions; then one
+  FedAvg round and one K-means fit under ``torch.profiler``.
+
+Last it checks that engine tokens equal per-request tokens on the reduced
+f32 models.
 
 Output: JSON lines, then the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -24,6 +35,7 @@ outside a checkout. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -322,6 +334,206 @@ def kernel_decode(torch, F, da, dev) -> tuple:
     return uniform, paged
 
 
+def _near_ties(torch, x, c):
+    """(P, n) bool for x (G, n, d), c (P, K, d): rows whose plain top-2
+    distance gap is below 1e-5 × (|‖μ‖²| + 2|x·μ|) at the plain winner —
+    there the kernel's f32 dot products and cuBLAS's may round either way."""
+    G, n, d = x.shape
+    P, K, _ = c.shape
+    cf = c.float().reshape(G, P // G, K, d)
+    c2 = (cf * cf).sum(-1)                                   # (G, R, K)
+    xc = torch.matmul(x.float()[:, None], cf.transpose(-1, -2))
+    dist = c2[..., None, :] - 2.0 * xc                       # (G, R, n, K)
+    if K == 1:
+        return torch.zeros((P, n), dtype=torch.bool, device=x.device)
+    top = dist.topk(2, dim=-1, largest=False)
+    win = top.indices[..., :1]
+    scale = (c2[..., None, :].expand_as(dist).gather(-1, win)
+             + 2.0 * xc.gather(-1, win).abs())[..., 0]
+    gap = top.values[..., 1] - top.values[..., 0]
+    return (gap < 1e-5 * scale).reshape(P, n)
+
+
+def _check_kmeans(torch, F, km, x, c, w, what: str, errs: list) -> None:
+    """Both kernels against the plain versions on x (G, n, d), c (G·R, K,
+    d), w (G, n). Assignments: equal to the plain argmin off near-ties
+    (``_near_ties``), the assign and reduce kernels equal to each other.
+    Sums: |Δ| ≤ 1e-5 × Σ|w·x| of the cluster, against the plain one-hot
+    reduction of the kernel's own assignment. Counts: exact for 0/1
+    weights, else to 1e-5 relative. Two reduce launches: bit-identical."""
+    a_k = km.kmeans_assign_cuda(x, c)
+    a_p = km.kmeans_assign_plain(x, c)
+    r1 = km.kmeans_assign_reduce_cuda(x, c, w)
+    r2 = km.kmeans_assign_reduce_cuda(x, c, w)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(r1, r2)):
+        raise AssertionError(f"{what}: the reduction is not deterministic")
+    A, S, N = r1
+    if not torch.equal(a_k, A):
+        raise AssertionError(f"{what}: assign and reduce kernels disagree")
+    neq = (a_k != a_p) & ~_near_ties(torch, x, c)
+    if neq.any():
+        raise AssertionError(f"{what}: {int(neq.sum())} rows assigned "
+                             "differently off near-ties")
+    G, n, d = x.shape
+    P, K, _ = c.shape
+    R = P // G
+    oh = F.one_hot(A.long(), K).float() * w.float().repeat_interleave(
+        R, 0)[..., None]                                     # (P, n, K)
+    xr = x.float().repeat_interleave(R, 0)
+    want = oh.transpose(1, 2) @ xr
+    scale = oh.transpose(1, 2) @ xr.abs()
+    ds = (S - want).abs()
+    if (ds > 1e-5 * scale).any():
+        raise AssertionError(f"{what}: sums off by {float(ds.max())!r} "
+                             "beyond 1e-5 of the cluster's sum of |w·x|")
+    cnt = oh.sum(1)
+    if bool(((w == 0) | (w == 1)).all()):
+        if not torch.equal(N, cnt):
+            raise AssertionError(f"{what}: 0/1 counts not exact")
+    elif ((N - cnt).abs() > 1e-5 * cnt).any():
+        raise AssertionError(f"{what}: counts off beyond 1e-5")
+    errs.append((float(ds.max()) if ds.numel() else 0.0,
+                 float((ds / scale.clamp(min=1e-30)).max() / 1e-5)
+                 if ds.numel() else 0.0))
+
+
+def _kmeans_cost(x, c, reduce: bool) -> tuple:
+    """Bytes (x, cents, w read once; outputs written once) and f32
+    operations of one call on x (G, n, d), c (P, K, d)."""
+    G, n, d = x.shape
+    P, K, _ = c.shape
+    esz = x.element_size()
+    by = G * n * d * esz + P * K * d * esz + P * n * 4
+    ops = 2 * P * n * K * d
+    if reduce:
+        by += G * n * 4 + P * K * d * 4 + P * K * 4
+        ops += 2 * P * n * d
+    return by, ops
+
+
+def _kmeans_times(torch, km, x, c, w) -> dict:
+    """Kernel, plain and library times of both functions on one input."""
+    G, n, d = x.shape
+    P, K, _ = c.shape
+    R = P // G
+    xr = x.repeat_interleave(R, 0)                 # the library's layout
+    wr = w.repeat_interleave(R, 0)
+    offs = (torch.arange(P, device=x.device) * K)[:, None]
+
+    def lib_assign():
+        return torch.baddbmm((c * c).sum(-1)[:, None, :], xr,
+                             c.transpose(1, 2), alpha=-2).argmin(-1)
+
+    def lib_reduce():
+        idx = (lib_assign() + offs).reshape(-1)
+        sums = torch.zeros((P * K, d), device=x.device).index_add_(
+            0, idx, (wr[..., None] * xr).reshape(-1, d))
+        cnts = torch.zeros((P * K,), device=x.device).index_add_(
+            0, idx, wr.reshape(-1))
+        return sums, cnts
+
+    out = {}
+    for name, kern, plain, lib, red in (
+            ("kmeans_assign", lambda: km.kmeans_assign_cuda(x, c),
+             lambda: km.kmeans_assign_plain(x, c), lib_assign, False),
+            ("kmeans_assign_reduce",
+             lambda: km.kmeans_assign_reduce_cuda(x, c, w),
+             lambda: km.kmeans_assign_reduce_plain(x, c, w), lib_reduce,
+             True)):
+        b_ms, b_by = bound(*_kmeans_cost(x, c, red), "float32")
+        out[name] = {"ms": median_ms(torch, kern, reps=20),
+                     "plain_ms": median_ms(torch, plain, reps=20),
+                     "library_ms": median_ms(torch, lib, reps=20),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
+    """Kernels #4 and #5 against their plain versions on every shape of
+    tests/test_kernels.py, n = 1, ragged row counts and the fit path's own
+    shapes (from the fit phase's data); times at the fit path's shapes."""
+    from repro_torch.core.kmeans import _plusplus_init
+    gen = torch.Generator(device=dev).manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def unif(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    errs = []
+    for n, d, K in ((64, 8, 3), (513, 77, 13), (1000, 128, 20),
+                    (256, 768, 15), (37, 33, 40)):          # test_kmeans_assign
+        for dt in (f32, bf16):
+            _check_kmeans(torch, F, km, rnd(1, n, d, dtype=dt),
+                          rnd(1, K, d, dtype=dt), unif(1, n),
+                          f"kmeans n={n} d={d} K={K} {dt}", errs)
+    for n, d, K in ((65, 1000, 7), (33, 1536, 5), (257, 999, 13),
+                    (65, 300, 7), (100, 4096, 40), (70, 900, 9),
+                    (200, 24, 1000), (300, 24, 2000), (256, 128, 20),
+                    (100, 40, 130), (1, 768, 20), (129, 768, 15)):
+        _check_kmeans(torch, F, km, rnd(1, n, d), rnd(1, K, d), unif(1, n),
+                      f"kmeans n={n} d={d} K={K}", errs)
+    x = rnd(1, 513, 77)                                      # 0/1 weights
+    _check_kmeans(torch, F, km, x, rnd(1, 13, 77), (unif(1, 513) > 0.3).float(),
+                  "kmeans 0/1 weights", errs)
+    x = rnd(1, 37, 9)                                        # zero-weight pad
+    w = (torch.arange(37, device=dev) < 30).float()[None]
+    _check_kmeans(torch, F, km, x, x[:, :5].clone(), w, "kmeans padding", errs)
+    a2 = km.kmeans_assign_reduce_cuda(x[0], x[0, :5].clone(), w[0])
+    a3 = km.kmeans_assign_reduce_cuda(x, x[:, :5].clone(), w)
+    if not all(torch.equal(u, v[0]) for u, v in zip(a2, a3)):
+        raise AssertionError("kmeans: 2-D and batched calls differ")
+
+    # the fit path's shapes: a local Lloyd step (10 clients × 3 restarts),
+    # the server step (150 uploads, K 20, 3 restarts), predict on the
+    # global test set and a route bucket of 16
+    tr, tg = data["train"], data["test_global"]
+    xl, wl = tr["x"], (tr["w"] > 0).float()
+    N, D_max, d = xl.shape
+    cl = _plusplus_init(gen, xl, wl, 15, 3).reshape(N * 3, 15, d)
+    _check_kmeans(torch, F, km, xl, cl, wl, "kmeans local Lloyd step", errs)
+    xs = cl[::3].reshape(1, N * 15, d).contiguous()
+    ws = torch.randint(0, 400, (1, N * 15), generator=gen, device=dev).float()
+    cs = _plusplus_init(gen, xs, ws, 20, 3).reshape(3, 20, d)
+    _check_kmeans(torch, F, km, xs, cs, ws, "kmeans server step", errs)
+    xq = tg["x"][None]
+    cq = cs[:1].contiguous()
+    _check_kmeans(torch, F, km, xq, cq, torch.ones(xq.shape[:2], device=dev),
+                  "kmeans predict", errs)
+    _check_kmeans(torch, F, km, xq[:, :16].contiguous(), cq,
+                  torch.ones((1, 16), device=dev), "kmeans route bucket", errs)
+
+    t_local = _kmeans_times(torch, km, xl, cl, wl)
+    t_pred = _kmeans_times(torch, km, xq, cq, torch.ones(xq.shape[:2],
+                                                         device=dev))
+    others = {"server step (1, 150, 768), K 20, R 3":
+              _kmeans_times(torch, km, xs, cs, ws),
+              "route bucket (1, 16, 768), K 20":
+              _kmeans_times(torch, km, xq[:, :16].contiguous(), cq,
+                            torch.ones((1, 16), device=dev)),
+              f"local Lloyd step (10, {D_max}, 768), K 15, R 3": t_local,
+              f"predict (1, {xq.shape[1]}, 768), K 20": t_pred}
+    emit({"phase": "kmeans_times", "shapes": others})
+    err = max(e for e, _ in errs)
+    ratio = max(r for _, r in errs)
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
+              "max_abs_err": err, "err_over_tol": ratio}
+    assign = {"name": "kmeans_assign",
+              "replaces": "src/repro/kernels/kmeans_assign.py:123",
+              "shape": f"predict: x (1, {xq.shape[1]}, 768) f32, K 20",
+              **common, **t_pred["kmeans_assign"]}
+    reduce = {"name": "kmeans_assign_reduce",
+              "replaces": "src/repro/kernels/kmeans_assign.py:291",
+              "shape": f"Lloyd step: x (10, {D_max}, 768) f32, 30 problems, "
+                       "K 15",
+              **common, **t_local["kmeans_assign_reduce"]}
+    return assign, reduce
+
+
 # ---------------------------------------------------------------------------
 # Main path: routed serving at full width
 # ---------------------------------------------------------------------------
@@ -415,6 +627,7 @@ def main_path(torch, dev) -> list:
     srv.drain([srv.submit(PROMPTS[0], lam=2.0, max_new_tokens=MAX_NEW)])
 
     UA, PA, RU = "decode_attention", "paged_decode_attention", "router_utility"
+    KA, KR = "kmeans_assign", "kmeans_assign_reduce"
     rows = []
 
     def gen_fn(s_, prompts, lam, **kw):
@@ -427,7 +640,7 @@ def main_path(torch, dev) -> list:
     for lam in (0.0, 2.0):
         rows.append(run_path(torch, ops, f"generate lam={lam}",
                              gen_fn(srv, PROMPTS, lam), {RU: 1, PA: None},
-                             (UA,)))
+                             (UA, KA, KR)))
 
     # RoutedServer.submit (one routing call per prompt), then step / drain
     subs = [(p, 0.0) for p in PROMPTS[:4]] + [(p, 2.0) for p in PROMPTS[4:8]]
@@ -441,7 +654,7 @@ def main_path(torch, dev) -> list:
         return check_lane_tokens(done, rids, pool)
 
     rows.append(run_path(torch, ops, "submit x8 + step + drain", submit_fn,
-                         {RU: len(subs), PA: None}, (UA,)))
+                         {RU: len(subs), PA: None}, (UA, KA, KR)))
 
     # each lane on its own, whatever a router would pick: both full-width
     # models decode through the paged kernel, once per layer per step
@@ -451,7 +664,7 @@ def main_path(torch, dev) -> list:
                                       MAX_NEW): m for p in PROMPTS[:4]}
             return check_lane_tokens(srv.drain(list(rids)), rids, pool)
         row = run_path(torch, ops, f"lane {pm.name} x4", lane_fn, {PA: None},
-                       (UA, RU))
+                       (UA, RU, KA, KR))
         if row["launches"][PA] % pm.cfg.n_layers:
             raise AssertionError(f"lane {pm.name}: {row['launches'][PA]} "
                                  f"paged launches, not a multiple of "
@@ -461,10 +674,21 @@ def main_path(torch, dev) -> list:
     # the uniform slot pool and the per-call path: the contiguous kernel
     rows.append(run_path(torch, ops, "generate lam=2.0 uniform pool",
                          gen_fn(srv_uniform, PROMPTS, 2.0), {RU: 1, UA: None},
-                         (PA,)))
+                         (PA, KA, KR)))
     rows.append(run_path(torch, ops, "generate lam=2.0 engine=False",
                          gen_fn(srv, PROMPTS[:4], 2.0, engine=False),
-                         {RU: 1, UA: None}, (PA,)))
+                         {RU: 1, UA: None}, (PA, KA, KR)))
+
+    # the K-means router (num_models=2, d_emb 768) in front of the same
+    # pool: routing is the kmeans_assign kernel and a gather
+    km_router = kmeans_pool_router(torch, dev)
+    srv_km = RoutedServer(pool, km_router, device=dev)
+    check_result(srv_km.generate(PROMPTS[:2], lam=2.0, max_new_tokens=MAX_NEW),
+                 pool, 2)                                    # warm-up
+    for lam in (0.0, 2.0):
+        rows.append(run_path(torch, ops, f"generate lam={lam} kmeans router",
+                             gen_fn(srv_km, PROMPTS, lam), {KA: 1, PA: None},
+                             (UA, RU, KR)))
 
     # full width, bf16: engine tokens vs per-request tokens (print only —
     # random weights leave near-ties in the argmax)
@@ -533,6 +757,232 @@ def _nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+# ---------------------------------------------------------------------------
+# Fit path: the federated router fit at the paper's router width
+# ---------------------------------------------------------------------------
+
+N_QUERIES = 36_000      # RouterBench's grid: 8 datasets × 11 models
+
+
+def fit_data(torch, dev) -> dict:
+    """The synthetic corpus (36,000 queries × 8 tasks × 11 models, d_emb
+    768) and its federated split under ``FedConfig()``, drawn on the card
+    from a seeded generator."""
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.data.partition import federated_split
+    from repro_torch.data.synthetic import make_eval_corpus
+    rcfg = RouterConfig()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    t0 = time.perf_counter()
+    corpus = make_eval_corpus(gen, n_queries=N_QUERIES, n_tasks=8,
+                              n_models=rcfg.num_models, d_emb=rcfg.d_emb)
+    split = federated_split(gen, corpus, FedConfig())
+    torch.cuda.synchronize()
+    tr = split["train"]
+    emit({"phase": "fit_data", "seconds": time.perf_counter() - t0,
+          "train": list(tr["x"].shape),
+          "client_rows": tr["w"].sum(1).int().tolist(),
+          "test_rows": int(split["test_global"]["x"].shape[0]),
+          "train_mib": sum(v.numel() * v.element_size()
+                           for v in tr.values()) / 2 ** 20})
+    return split
+
+
+def kmeans_pool_router(torch, dev):
+    """A K-means router over the two pool models (num_models=2, d_emb 768),
+    fitted with ``fit_federated`` on a 4,000-query corpus of two models."""
+    from repro_torch import routers
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.data.partition import federated_split
+    from repro_torch.data.synthetic import make_eval_corpus
+    gen = torch.Generator(device=dev).manual_seed(21)
+    corpus = make_eval_corpus(gen, n_queries=4000, n_tasks=8, n_models=2,
+                              d_emb=768)
+    split = federated_split(gen, corpus, FedConfig())
+    router, _ = routers.fit_federated(
+        routers.make("kmeans", RouterConfig(num_models=2)), split["train"],
+        FedConfig(), gen=gen, device=dev)
+    return router
+
+
+def run_fit(torch, ops, name: str, fn, owns: dict, extra=None) -> tuple:
+    """One run of the fit path with every launch count set to 0 just before
+    it and read just after. ``owns`` maps each kernel the run must launch
+    to its expected count (None: any count > 0); every other kernel must
+    not launch. Returns (fn's result, the row)."""
+    ops.reset_launch_counts()
+    out, dt = timed(torch, fn)
+    counts = ops.launch_counts()
+    for k, n in counts.items():
+        want = owns.get(k, 0)
+        if (k in owns and n <= 0) or (want is not None and n != want):
+            raise AssertionError(f"{name}: {n} launches of {k}, expected "
+                                 f"{'> 0' if want is None else want}")
+    row = {"phase": "fit", "path": name, "seconds": dt, "launches": counts,
+           **(extra(out) if extra else {})}
+    emit(row)
+    return out, row
+
+
+def fit_phase(torch, dev, split) -> list:
+    """``fit_federated`` of "mlp" (30 rounds) and of "kmeans", ``fit_local``
+    of both on 3 clients (MLP 300 steps), ``eval_router`` on the global
+    test split and a route bucket, each a run with its own launch counts.
+    Checks every AUC lies between the cheapest model's accuracy and the
+    oracle's AUC, a repeated K-means fit is bit-identical, and the K-means
+    fit with the plain versions agrees with the kernels' fit."""
+    import os
+
+    from repro_torch import routers
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.core import policy
+    from repro_torch.data.partition import client_slice
+    from repro_torch.kernels import ops
+    rcfg, fcfg = RouterConfig(), FedConfig()
+    KA, KR, RU = "kmeans_assign", "kmeans_assign_reduce", "router_utility"
+    train, tg = split["train"], split["test_global"]
+    rows, aucs = [], {}
+
+    def auc_of(r):
+        return policy.eval_router(r.predict, tg["x"], tg["acc_table"],
+                                  tg["cost_table"])[2]
+
+    class _Oracle:
+        predict = staticmethod(lambda x: (tg["acc_table"], tg["cost_table"]))
+
+    oracle = auc_of(_Oracle)
+    cheapest = int(torch.argmin(tg["cost_table"].mean(0)))
+    floor = float(tg["acc_table"][:, cheapest].mean())
+
+    def fit(name, family, federated, owns, seed, client=None, **kw):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if federated:
+            fn = lambda: routers.fit_federated(routers.make(family, rcfg),
+                                               train, fcfg, gen=gen,
+                                               device=dev, **kw)
+        else:
+            fn = lambda: routers.fit_local(routers.make(family, rcfg),
+                                           client_slice(train, client),
+                                           fcfg, gen=gen, device=dev, **kw)
+        loss = lambda out: ({"loss_round1": out[1]["loss"][0],
+                             "loss_round30": out[1]["loss"][-1]}
+                            if federated and out[1]["loss"] else {})
+        (router, _), row = run_fit(torch, ops, name, fn, owns, loss)
+        rows.append(row)
+        auc, row = run_fit(torch, ops, f"{name}: eval_router (predict)",
+                           lambda: auc_of(router),
+                           {KA: 1} if family == "kmeans" else {},
+                           lambda a: {"auc": a})
+        rows.append(row)
+        _, row = run_fit(torch, ops, f"{name}: route bucket of 16",
+                         lambda: router.route(tg["x"][:16], 1.0),
+                         {KA: 1} if family == "kmeans" else {RU: 1})
+        rows.append(row)
+        if not (math.isfinite(auc) and floor <= auc <= oracle):
+            raise AssertionError(f"{name}: AUC {auc!r} outside [cheapest "
+                                 f"model {floor!r}, oracle {oracle!r}]")
+        aucs.setdefault(name.split(" client")[0], []).append(auc)
+        return router
+
+    iters = rcfg.kmeans_iters
+    fit("fed mlp", "mlp", True, {}, 30)
+    # one launch per Lloyd step for all 10 clients × 3 restarts, then the
+    # server's; kmeans_assign: the two final assignments and the statistics
+    km = fit("fed kmeans", "kmeans", True, {KR: 2 * iters, KA: 3}, 31)
+    for i in range(3):
+        fit(f"local mlp client {i}", "mlp", False, {}, 40 + i, client=i,
+            steps=300)
+        fit(f"local kmeans client {i}", "kmeans", False, {KR: iters, KA: 2},
+            50 + i, client=i)
+
+    def refit():
+        gen = torch.Generator(device=dev).manual_seed(31)
+        return routers.fit_federated(routers.make("kmeans", rcfg), train,
+                                     fcfg, gen=gen, device=dev)[0]
+
+    (again, _), row = run_fit(torch, ops, "fed kmeans repeated", lambda: (
+        refit(), None), {KR: 2 * iters, KA: 3})
+    rows.append(row)
+    same = all(torch.equal(km.state[k], again.state[k]) for k in km.state)
+    if not same:
+        raise AssertionError("fed kmeans: a repeated fit with one seed gave "
+                             "other centroids or statistics")
+    os.environ["REPRO_TORCH_KERNELS"] = "ref"
+    try:
+        (plain, _), row = run_fit(torch, ops, "fed kmeans impl=ref",
+                                  lambda: (refit(), None), {})
+    finally:
+        del os.environ["REPRO_TORCH_KERNELS"]
+    rows.append(row)
+    # the two fits' test-set assignments: equal off near-ties of the plain
+    # fit's centroids; AUCs within 0.01
+    c_k, c_p = km.state["centroids"], plain.state["centroids"]
+    a_k = ops.kmeans_assign(tg["x"], c_k, impl="ref")
+    a_p = ops.kmeans_assign(tg["x"], c_p, impl="ref")
+    d_p = (c_p * c_p).sum(-1)[None] - 2.0 * tg["x"] @ c_p.T
+    gap = d_p.gather(1, a_k[:, None].long()) - d_p.gather(1, a_p[:, None].long())
+    scale = (c_p * c_p).sum(-1)[a_p.long()] + 2.0 * (
+        tg["x"] * c_p[a_p.long()]).sum(-1).abs()
+    off = (a_k != a_p) & (gap[:, 0] >= 1e-5 * scale)
+    auc_p = auc_of(plain)
+    emit({"phase": "fit_kernels_vs_plain", "centroid_max_abs_diff":
+          float((c_k - c_p).abs().max()), "rows_differing":
+          int((a_k != a_p).sum()), "rows_differing_off_near_ties":
+          int(off.sum()), "auc_kernels": aucs["fed kmeans"][0],
+          "auc_plain": auc_p, "bit_identical_repeat": same})
+    if off.any() or abs(auc_p - aucs["fed kmeans"][0]) > 0.01:
+        raise AssertionError("fed kmeans: the plain versions' fit disagrees "
+                             "with the kernels' fit")
+    emit({"phase": "fit_aucs", "fed_mlp": aucs["fed mlp"][0],
+          "fed_kmeans": aucs["fed kmeans"][0],
+          "local_mlp_mean": sum(aucs["local mlp"]) / 3,
+          "local_kmeans_mean": sum(aucs["local kmeans"]) / 3,
+          "oracle": oracle, "cheapest_model_acc": floor})
+    return rows
+
+
+def profile_fit(torch, dev, split) -> None:
+    """Where a fit's time goes at full width: one FedAvg round (6 active
+    clients, ⌈D_max/128⌉ local steps) and one federated K-means fit, each
+    timed bare and then traced with torch.profiler. Reports the device's
+    busy time by kernel and its idle share of the bare wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.core import federated as fed
+    from repro_torch.core import kmeans_router as KR
+    from repro_torch.core.mlp_router import init_mlp_router
+    rcfg, fcfg = RouterConfig(), FedConfig()
+    train = split["train"]
+    gen = torch.Generator(device=dev).manual_seed(60)
+    params = init_mlp_router(gen, rcfg)
+    opt = fed._make_opt(fcfg, "adamw")
+    steps = math.ceil(train["x"].shape[1] / fcfg.batch_size)
+    work = {
+        "fedavg_round": lambda: fed.fedavg_round(params, train, gen, rcfg,
+                                                 fcfg, opt, steps),
+        "fed_kmeans_router": lambda: KR.fed_kmeans_router(gen, train, rcfg),
+    }
+    cuda = torch.autograd.DeviceType.CUDA
+    for name, fn in work.items():
+        fn()                                               # warm-up
+        _, bare = timed(torch, fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, traced = timed(torch, fn)
+        kern = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages() if e.device_type == cuda]
+        busy = sum(ms for _, ms, _ in kern)
+        emit({"phase": "profile_fit", "work": name,
+              "local_steps": steps if name == "fedavg_round" else None,
+              "wall_ms_bare": bare * 1e3, "wall_ms_traced": traced * 1e3,
+              "device_busy_ms": busy,
+              "device_idle_share": (1 - busy / (bare * 1e3)) if busy else None,
+              "device_launches": sum(c for _, _, c in kern),
+              "top": [{"kernel": n[:90], "ms": ms, "launches": c}
+                      for n, ms, c in sorted(kern, key=lambda r: -r[1])[:6]]})
+
+
 def reduced_parity(torch, dev) -> None:
     """Reduced f32 models on the card: engine tokens (paged kernel) must
     equal per-request tokens (uniform kernel) exactly."""
@@ -575,6 +1025,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import router_utility as ru
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
@@ -594,13 +1045,19 @@ def main() -> None:
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
 
+    split = fit_data(torch, dev)
     t0 = time.perf_counter()
-    rows = [kernel_router(torch, ru, dev), *kernel_decode(torch, F, da, dev)]
+    rows = [kernel_router(torch, ru, dev), *kernel_decode(torch, F, da, dev),
+            *kernel_kmeans(torch, F, km, dev, split)]
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     paths = main_path(torch, dev)
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    paths += fit_phase(torch, dev, split)
+    profile_fit(torch, dev, split)
+    emit({"phase": "fit_path_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     reduced_parity(torch, dev)
     emit({"phase": "reduced_done", "seconds": time.perf_counter() - t0})

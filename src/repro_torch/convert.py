@@ -1,10 +1,10 @@
-"""Carry weights from the JAX reference into the port.
+"""Carry weights and router state between the JAX reference and the port.
 
 The input is the reference's parameter tree with every leaf turned into a
 numpy array (``jax.tree.map(np.asarray, params)``): nested dicts, lists
-kept as lists. The trees have the same layout on both sides —
-``params["blocks"]`` stays stacked along its leading ``n_units`` axis — so
-conversion is leaf by leaf. A bf16 leaf arrives as an ``ml_dtypes``
+kept as lists; ``state_to_numpy`` is the way back. The trees have the same
+layout on both sides — ``params["blocks"]`` stays stacked along its leading
+``n_units`` axis — so conversion is leaf by leaf. A bf16 leaf arrives as an ``ml_dtypes``
 bfloat16 array, which torch cannot read directly; its bits are taken
 through an int16 view.
 """
@@ -56,6 +56,19 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
 
 
 def router_state_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
-    """The port's MLP-router state ({"trunk": [...], "heads": {...}}) for a
-    reference router state tree."""
+    """The port's router state for a reference router state tree: MLP
+    params or FedAvg's fitted params ({"trunk": [...], "heads": {...}}),
+    or a K-means router ({"centroids", "A", "C", "n"})."""
     return _tree(tree, resolve_device(device))
+
+
+def state_to_numpy(tree):
+    """The port's state or params as a tree of numpy arrays, the layout the
+    reference takes (``jax.tree.map(jnp.asarray, ...)``). bf16 leaves come
+    back as f32 (exact)."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [state_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

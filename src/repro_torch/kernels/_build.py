@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("router_utility", "decode_attention")
+SOURCES = ("router_utility", "decode_attention", "kmeans_assign")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

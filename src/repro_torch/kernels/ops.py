@@ -12,6 +12,7 @@ import os
 from typing import Dict, Optional
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import router_utility as _ru
 
 _IMPLS = ("ref", "cuda")
@@ -56,12 +57,32 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, n_valid, *,
                                             n_valid)
 
 
+def kmeans_assign(x, cents, *, impl: Optional[str] = None):
+    """Nearest-centroid index (int32) of each row of x (n, d) among cents
+    (K, d); batched as x (G, n, d), cents (G·R, K, d) → (G·R, n)."""
+    if resolve_impl(impl, x) == "cuda":
+        return _km.kmeans_assign_cuda(x, cents)
+    return _km.kmeans_assign_plain(x, cents)
+
+
+def kmeans_assign_reduce(x, cents, w, *, impl: Optional[str] = None):
+    """One Lloyd step's work: the assignment plus the w-weighted
+    per-cluster coordinate sums (K, d) and counts (K,), all f32; batched
+    as ``kmeans_assign``, with w (G, n)."""
+    if resolve_impl(impl, x) == "cuda":
+        return _km.kmeans_assign_reduce_cuda(x, cents, w)
+    return _km.kmeans_assign_reduce_plain(x, cents, w)
+
+
+_ALL_COUNTS = (_ru.COUNTS, _da.COUNTS, _km.COUNTS)
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of every CUDA kernel since the last reset."""
-    return {**_ru.COUNTS, **_da.COUNTS}
+    return {k: v for counts in _ALL_COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_ru.COUNTS, _da.COUNTS):
+    for counts in _ALL_COUNTS:
         for name in counts:
             counts[name] = 0

@@ -1,11 +1,35 @@
 """Plain PyTorch oracles: the port's copies of the reference package's
-``kernels/ref.py`` for the serving kernels. They are the ground truth the
+``kernels/ref.py`` for the ported kernels. They are the ground truth the
 port is held against in tests (each is checked against its JAX twin on the
 same inputs), and ``paged_gather_ref`` is the CPU model path's page gather.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def kmeans_assign_ref(x, cents):
+    """x: (n, d), cents: (K, d) → (n,) int32 nearest-centroid index.
+
+    Distance via the expansion ‖x−μ‖² = ‖x‖² − 2xμᵀ + ‖μ‖²; the ‖x‖² term is
+    constant per row and dropped (argmin-invariant). Ties take the first
+    index."""
+    xc = x.float() @ cents.float().T                              # (n, K)
+    c2 = torch.sum(cents.float() ** 2, dim=-1)                    # (K,)
+    return torch.argmin(c2[None, :] - 2.0 * xc, dim=-1).to(torch.int32)
+
+
+def kmeans_assign_reduce_ref(x, cents, w):
+    """x: (n, d), cents: (K, d), w: (n,) →
+    (assign (n,) int32, sums (K, d) f32, counts (K,) f32): the
+    nearest-centroid argmin plus the weighted one-hot reduction a Lloyd's
+    step needs (sums[k] = Σ_{assign_i=k} w_i·x_i, counts[k] = Σ w_i),
+    accumulated in f32."""
+    K = cents.shape[0]
+    assign = kmeans_assign_ref(x, cents)
+    wv = F.one_hot(assign.long(), K).float() * w.float()[:, None]  # (n, K)
+    return assign, wv.T @ x.float(), wv.sum(dim=0)
 
 
 def router_utility_ref(h, acc_w, acc_b, cost_w, cost_b, lam):

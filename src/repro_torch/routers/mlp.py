@@ -1,21 +1,29 @@
 """Parametric MLP-Router behind the unified interface (PyTorch counterpart
-of ``repro/routers/mlp.py``; paper §4.1). The decision hot path
+of ``repro/routers/mlp.py``; paper §4.1, Alg. 1). The decision hot path
 (``route``) runs the trunk in PyTorch and the fused ``router_utility``
 kernel on its features: both heads and the λ-utility argmax in one pass,
-without materializing A and C."""
+without materializing A and C.
+
+Federated fitting is iterative FedAvg (``core.federated.fedavg``) with
+every client of a round trained as one batched pass. Model and client
+onboarding wait for the port of ``core/expansion.py``.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import federated as F
 from repro_torch.core import mlp_router as R
 from repro_torch.device import generator, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.routers.base import Router
 from repro_torch.routers.registry import register
+from repro_torch.train.optim import tree_map
 
 
 @register("mlp")
 class MLPRouter(Router):
+    parametric = True
 
     def init(self, gen, *, device=None) -> "MLPRouter":
         gen = generator(gen, resolve_device(device))
@@ -35,6 +43,10 @@ class MLPRouter(Router):
                                         hd["cost_w"], hd["cost_b"], lam)
         return choice
 
+    def loss(self, batch, *, gen=None):
+        self._require_state()
+        return R.router_loss(self.state, batch, self.rcfg, gen=gen)
+
     def _state_num_models(self) -> int:
         return int(self.state["heads"]["acc_b"].shape[0])
 
@@ -42,3 +54,43 @@ class MLPRouter(Router):
     def device(self) -> torch.device:
         self._require_state()
         return self.state["heads"]["acc_w"].device
+
+    # ------------------------------------------------------------ onboarding
+
+    def onboard_model(self, calib, **kw) -> "MLPRouter":
+        raise NotImplementedError(
+            "MLP model onboarding (core/expansion.py) is not ported to "
+            "PyTorch yet")
+
+    def onboard_clients(self, data_new, **kw) -> "MLPRouter":
+        raise NotImplementedError(
+            "MLP client onboarding (core/expansion.py) is not ported to "
+            "PyTorch yet")
+
+    # --------------------------------------------------------------- fitting
+
+    def _init_for_fit(self, gen):
+        """The existing state (on the fit's device), or a fresh router with
+        this router's M drawn from ``gen``."""
+        if self.state is not None:
+            return tree_map(lambda t: t.to(gen.device), self.state)
+        return R.init_mlp_router(gen, self.rcfg, num_models=self._num_models)
+
+    def _fit_federated(self, gen, data, fcfg, *, rounds=None, eval_fn=None,
+                       mesh=None, **kw):
+        """Alg. 1 in process; ``kw`` forwards optimizer / full_batch /
+        dp_sigma / aggregator / eval_every to ``fedavg``."""
+        init = self._init_for_fit(gen)
+        wrapped = (None if eval_fn is None
+                   else lambda p: eval_fn(self.with_state(p)))
+        params, hist = F.fedavg(gen, data, self.rcfg, fcfg, rounds=rounds,
+                                init=init, mesh=mesh, eval_fn=wrapped, **kw)
+        return self.with_state(params), hist
+
+    def _fit_local(self, gen, data_i, fcfg, *, steps: int = 400,
+                   optimizer: str = "adamw", **kw):
+        """Client-local / centralized ERM baseline (flat dataset)."""
+        params, losses = F.sgd_train(gen, data_i, self.rcfg, fcfg,
+                                     steps=steps, optimizer=optimizer,
+                                     init=self._init_for_fit(gen), **kw)
+        return self.with_state(params), {"loss": losses.tolist()}

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Type
 
 from repro_torch.config import RouterConfig
+from repro_torch.device import DeviceLike
 from repro_torch.routers.base import Router
 
 _REGISTRY: Dict[str, Type[Router]] = {}
@@ -40,3 +41,12 @@ def make(name: str, rcfg: RouterConfig, *, num_models: Optional[int] = None,
          state=None) -> Router:
     """Build an (unfitted, unless ``state`` is given) router by name."""
     return get(name)(rcfg, num_models=num_models, state=state)
+
+
+def load(path, rcfg: RouterConfig, *, device: DeviceLike = None) -> Router:
+    """Restore a router checkpoint written by ``Router.save`` (the port's
+    or the reference's): the family tag stored beside the state picks the
+    class, and the state lands on ``device`` (the CUDA device unless it
+    names another)."""
+    kind, state = Router.load_state(path, device)
+    return make(kind, rcfg, state=state)

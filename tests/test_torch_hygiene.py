@@ -44,14 +44,21 @@ def test_port_has_every_slice_module():
             "models/attention.py", "models/model.py", "serve/kv_cache.py",
             "serve/engine.py", "serve/gateway.py", "core/mlp_router.py",
             "routers/base.py", "routers/registry.py", "routers/mlp.py",
-            "convert.py"]
+            "convert.py",
+            # slice 2: the federated router fit
+            "train/checkpoint.py", "train/optim.py",
+            "kernels/kmeans_assign.py", "kernels/csrc/kmeans_assign.cu",
+            "data/synthetic.py", "data/partition.py", "core/policy.py",
+            "fed/aggregators.py", "core/federated.py", "core/kmeans.py",
+            "core/kmeans_router.py", "routers/fit.py", "routers/kmeans.py",
+            "quickstart.py"]
     pkg = ROOT / "src" / "repro_torch"
     assert [w for w in want if not (pkg / w).is_file()] == []
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     from repro_torch import routers
-    from repro_torch.config import ModelConfig, RouterConfig
+    from repro_torch.config import FedConfig, ModelConfig, RouterConfig
     from repro_torch.models import init_params
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.gateway import RoutedServer, make_pool_model
@@ -80,3 +87,26 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     srv = RoutedServer(pool, router, device="cpu")
     out = srv.generate(["hello there"], max_new_tokens=2)
     assert len(out["results"][0]["tokens"]) == 2
+
+    # the fit entry points
+    fcfg = FedConfig(num_clients=2, rounds=1)
+    data = {"x": torch.randn((2, 20, 16)), "m": torch.zeros((2, 20),
+                                                            dtype=torch.int32),
+            "acc": torch.ones((2, 20)), "cost": torch.zeros((2, 20)),
+            "w": torch.ones((2, 20))}
+    flat = {k: v[0] for k, v in data.items()}
+    kcfg = RouterConfig(d_emb=16, num_models=1, k_local=3, k_global=2,
+                        kmeans_iters=2, n_init=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        routers.make("kmeans", kcfg).init(0)
+    for fam, cfg in (("mlp", rcfg), ("kmeans", kcfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            routers.fit_federated(routers.make(fam, cfg), data, fcfg, gen=0)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            routers.fit_local(routers.make(fam, cfg), flat, fcfg, gen=0)
+        fitted, _ = routers.fit_federated(routers.make(fam, cfg), data, fcfg,
+                                          gen=0, device="cpu")
+        assert fitted.device == torch.device("cpu")
+        fitted, _ = routers.fit_local(routers.make(fam, cfg), flat, fcfg,
+                                      gen=0, device="cpu", steps=2)
+        assert fitted.route(flat["x"], 0.5).shape == (20,)

@@ -218,4 +218,6 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
     assert not _build._libs          # importing and refusing built nothing
     assert ops.launch_counts() == {"router_utility": 0,
                                    "decode_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "kmeans_assign": 0,
+                                   "kmeans_assign_reduce": 0}
