@@ -7,20 +7,27 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc``, holds each kernel against
 its plain PyTorch version (at the serving shapes, at the shapes of the
 reference's kernel tests and at the router fit's shapes) and times both,
-then drives the port's two main paths, with the launch counters reset
-just before each path and read just after it:
+then drives the port's main paths, with the launch counters reset just
+before each path and read just after it:
 
 * routed serving of qwen2-1.5b and yi-6b at full published width and
   depth, random bf16 weights from a seeded generator, through each path
   of ``RoutedServer`` (``generate`` on the paged engine, ``submit`` /
   ``step`` / ``drain``, each lane alone, the uniform slot pool, the
-  per-call path), routed by the MLP router and then by a K-means router;
+  per-call path), routed by the MLP router, then by a K-means router,
+  then by an MF and an Elo router;
+* prefill attention through ``ops.flash_attention`` at the served models'
+  attention shapes (yi-6b and qwen2-1.5b after the GQA repeat, S 4096);
 * the federated router fit at the paper's router width (d_emb 768, 11
   models, 10 clients, 36,000 synthetic queries, ``FedConfig()``):
-  ``fit_federated`` and ``fit_local`` of "mlp" and "kmeans", each
-  evaluated on the global test split and routed, a repeated K-means fit
-  (bit-identical) and a K-means fit on the plain versions; then one
-  FedAvg round and one K-means fit under ``torch.profiler``.
+  ``fit_federated`` and ``fit_local`` of "mlp", "mf", "kmeans" and "elo",
+  each evaluated on the global test split and routed, a repeated K-means
+  fit (bit-identical) and a K-means fit on the plain versions; model
+  onboarding (3 of the 11 models withheld, then added from a 10%
+  calibration subset), client onboarding (7 clients through
+  ``client_mask``, then the other 3), personalization on 3 clients and
+  secure aggregation; then one FedAvg round and one K-means fit under
+  ``torch.profiler``.
 
 Last it checks that engine tokens equal per-request tokens on the reduced
 f32 models.
@@ -164,32 +171,53 @@ def _check_router(torch, ru, args, what: str) -> tuple:
     return err
 
 
+def _router_bound(n: int, dh: int, M: int) -> tuple:
+    return bound(4 * (n * dh + 2 * dh * M + 2 * M + 2 * n), 4 * n * dh * M,
+                 "float32")
+
+
 def kernel_router(torch, ru, dev) -> dict:
+    """Kernel #1 against its plain version at the features of every family
+    that routes through it: the MLP trunk (dh 512), MF's latent factors
+    (dh = mf_rank 32) and Elo's anchor similarities (dh = k_global 20)."""
     gen = torch.Generator(device=dev).manual_seed(11)
 
-    def heads(n, M):
-        return (torch.randn((n, 512), generator=gen, device=dev),
-                torch.randn((512, M), generator=gen, device=dev) * 0.05,
+    def heads(n, M, dh=512):
+        return (torch.randn((n, dh), generator=gen, device=dev),
+                torch.randn((dh, M), generator=gen, device=dev) * 0.05,
                 torch.randn((M,), generator=gen, device=dev) * 0.1,
-                torch.randn((512, M), generator=gen, device=dev) * 0.05,
+                torch.randn((dh, M), generator=gen, device=dev) * 0.05,
                 torch.randn((M,), generator=gen, device=dev) * 0.1)
 
     errs = []
     # n: the main path's buckets (1 for submit, 4 for the per-call path,
-    # 16 for generate's 12 prompts) and whole and many 8-row blocks
-    for n in (1, 4, 8, 16, 1024):
-        for M in (2, 40):
-            t = heads(n, M)
-            for lam in (0.0, 0.5, 10.0):
-                errs.append(_check_router(
-                    torch, ru, (*t, lam),
-                    f"router_utility n={n} M={M} lam={lam}"))
-    # the timed call: generate's bucket of 16 at M = 2, λ = 2, checked too
+    # 16 for generate's 12 prompts) and whole and many 8-row blocks; M: the
+    # served pool, the fit's 11 models and a wide pool
+    for dh in (512, 32, 20):
+        for n in (1, 4, 8, 16, 1024):
+            for M in (2, 11, 40):
+                t = heads(n, M, dh)
+                for lam in (0.0, 0.5, 10.0):
+                    errs.append(_check_router(
+                        torch, ru, (*t, lam),
+                        f"router_utility dh={dh} n={n} M={M} lam={lam}"))
+    # timed at generate's bucket of 16, λ = 2, checked too: M 2 at each
+    # family's features (the row below is the MLP's), and M 11 (the fit's
+    # route bucket)
+    times = {}
+    for dh, M in ((32, 2), (20, 2), (32, 11), (20, 11), (512, 11)):
+        a = (*heads(16, M, dh), 2.0)
+        errs.append(_check_router(torch, ru, a, f"router_utility timed dh={dh}"
+                                                f" M={M}"))
+        b_ms, by = _router_bound(16, dh, M)
+        times[f"h (16, {dh}) f32, M {M}"] = {
+            "ms": median_ms(torch, lambda: ru.router_utility_cuda(*a)),
+            "plain_ms": median_ms(torch, lambda: ru.router_utility_plain(*a)),
+            "bound_ms": b_ms, "bound_by": by}
+    emit({"phase": "router_utility_times", "shapes": times})
     args = (*heads(16, 2), 2.0)
     errs.append(_check_router(torch, ru, args, "router_utility timed args"))
-    n, dh, M = 16, 512, 2
-    b_ms, by = bound(4 * (n * dh + 2 * dh * M + 2 * M + 2 * n),
-                     4 * n * dh * M, "float32")
+    b_ms, by = _router_bound(16, 512, 2)
     return {"name": "router_utility", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/router_utility.cu",
             "replaces": "src/repro/kernels/router_utility.py:32",
@@ -534,6 +562,117 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
     return assign, reduce
 
 
+#: the served models' prefill attention after the GQA repeat, S 4096
+FLASH_SHAPES = {"yi-6b": (1, 4096, 32, 128), "qwen2-1.5b": (1, 4096, 12, 128)}
+
+
+def _check_flash(torch, fa, q, k, v, causal: bool, what: str) -> tuple:
+    """The kernel against its plain version. Both compute in f32 from the
+    same inputs and round once to q's dtype; they differ only in the order
+    of f32 sums (dot products, the online softmax's rescaling, p·v). The
+    tolerance: f32 |Δ| ≤ 2e-5·(|want| + A), bf16 |Δ| ≤ 1 bf16 ulp of want
+    + 2e-5·A, where A = Σp|v|/Σp (the same attention over |v|) bounds
+    |want| and sets the scale of every term of p·v, 2e-5 is the reference
+    test's tolerance taken relative to it, and one ulp covers two f32
+    values on either side of a bf16 rounding boundary. Returns (max |Δ|,
+    max |Δ| / tolerance)."""
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    A = fa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                 causal=causal)
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    d = (g - w).abs()
+    tol = (bf16_ulp(torch, w) + 2e-5 * A if q.dtype == torch.bfloat16
+           else 2e-5 * (w.abs() + A))
+    if (d > tol).any():
+        i = int(torch.argmax(d / tol))
+        raise AssertionError(f"{what}: {int((d > tol).sum())} elements out "
+                             f"of tolerance; worst: kernel "
+                             f"{g.reshape(-1)[i].item()!r} plain "
+                             f"{w.reshape(-1)[i].item()!r} tolerance "
+                             f"{tol.reshape(-1)[i].item()!r}")
+    return float(d.max()), float((d / tol).max())
+
+
+def _flash_times(torch, F, fa, q, k, v) -> dict:
+    """Kernel, plain and library times, causal, and the bound: q, k, v read
+    once and the output written once; 4·B·H·hd·S(S+1)/2 operations (the
+    causal half of q·kᵀ and p·v) at the bf16 rate."""
+    B, S, H, hd = q.shape
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    b_ms, b_by = bound(4 * q.numel() * q.element_size(),
+                       4 * B * H * hd * S * (S + 1) / 2, "bfloat16")
+    return {"ms": median_ms(torch, lambda: fa.flash_attention_cuda(q, k, v),
+                            reps=20),
+            "plain_ms": median_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v), reps=10),
+            "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=20),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def kernel_flash(torch, F, fa, dev) -> dict:
+    """Kernel #6 against its plain version at the shapes of the reference's
+    test (tests/test_kernels.py::test_flash_attention), at sequence lengths
+    that are not a multiple of the 64-row tile, at S = 1 and at the path's
+    own shapes; timed at the served models' shapes."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def qkv(shape, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for _ in range(3)]
+
+    errs = []
+    for shape in ((1, 128, 2, 64), (2, 256, 4, 64), (2, 512, 2, 128),
+                  (1, 200, 3, 128), (2, 1000, 2, 64), (3, 1, 2, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(shape, dtype)
+            for causal in (True, False):
+                errs.append(_check_flash(torch, fa, q, k, v, causal,
+                                         f"flash {shape} {dtype} "
+                                         f"causal={causal}"))
+    times = {}
+    for name, shape in FLASH_SHAPES.items():
+        q, k, v = qkv(shape, torch.bfloat16)
+        errs.append(_check_flash(torch, fa, q, k, v, True,
+                                 f"flash {name} {shape}"))
+        times[name] = _flash_times(torch, F, fa, q, k, v)
+    emit({"phase": "flash_times", "shapes": {
+        f"{n}: q {FLASH_SHAPES[n]} bf16 causal": t for n, t in times.items()}})
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:68",
+            "shape": f"yi-6b prefill: q {FLASH_SHAPES['yi-6b']} bf16 causal",
+            "max_abs_err": max(e for e, _ in errs),
+            "err_over_tol": max(r for _, r in errs), **times["yi-6b"]}
+
+
+def flash_path(torch, dev) -> dict:
+    """Prefill attention through the port's entry point
+    (``ops.flash_attention``) at the served models' shapes, causal bf16:
+    one kernel launch per call."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(15)
+    inputs = [[torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3)] for shape in FLASH_SHAPES.values()]
+
+    def fn():
+        for q, k, v in inputs:
+            out = ops.flash_attention(q, k, v, causal=True)
+            if out.shape != q.shape or not torch.isfinite(out.float()).all():
+                raise AssertionError("flash_attention: bad output")
+
+    ops.flash_attention(*inputs[0], causal=True)            # warm-up
+    _, row = run_fit(torch, ops, "flash_attention", fn,
+                     {"flash_attention": len(inputs)}, phase="flash")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # Main path: routed serving at full width
 # ---------------------------------------------------------------------------
@@ -627,7 +766,7 @@ def main_path(torch, dev) -> list:
     srv.drain([srv.submit(PROMPTS[0], lam=2.0, max_new_tokens=MAX_NEW)])
 
     UA, PA, RU = "decode_attention", "paged_decode_attention", "router_utility"
-    KA, KR = "kmeans_assign", "kmeans_assign_reduce"
+    KA, KR, FA = "kmeans_assign", "kmeans_assign_reduce", "flash_attention"
     rows = []
 
     def gen_fn(s_, prompts, lam, **kw):
@@ -640,7 +779,7 @@ def main_path(torch, dev) -> list:
     for lam in (0.0, 2.0):
         rows.append(run_path(torch, ops, f"generate lam={lam}",
                              gen_fn(srv, PROMPTS, lam), {RU: 1, PA: None},
-                             (UA, KA, KR)))
+                             (UA, KA, KR, FA)))
 
     # RoutedServer.submit (one routing call per prompt), then step / drain
     subs = [(p, 0.0) for p in PROMPTS[:4]] + [(p, 2.0) for p in PROMPTS[4:8]]
@@ -654,7 +793,7 @@ def main_path(torch, dev) -> list:
         return check_lane_tokens(done, rids, pool)
 
     rows.append(run_path(torch, ops, "submit x8 + step + drain", submit_fn,
-                         {RU: len(subs), PA: None}, (UA, KA, KR)))
+                         {RU: len(subs), PA: None}, (UA, KA, KR, FA)))
 
     # each lane on its own, whatever a router would pick: both full-width
     # models decode through the paged kernel, once per layer per step
@@ -664,7 +803,7 @@ def main_path(torch, dev) -> list:
                                       MAX_NEW): m for p in PROMPTS[:4]}
             return check_lane_tokens(srv.drain(list(rids)), rids, pool)
         row = run_path(torch, ops, f"lane {pm.name} x4", lane_fn, {PA: None},
-                       (UA, RU, KA, KR))
+                       (UA, RU, KA, KR, FA))
         if row["launches"][PA] % pm.cfg.n_layers:
             raise AssertionError(f"lane {pm.name}: {row['launches'][PA]} "
                                  f"paged launches, not a multiple of "
@@ -674,21 +813,26 @@ def main_path(torch, dev) -> list:
     # the uniform slot pool and the per-call path: the contiguous kernel
     rows.append(run_path(torch, ops, "generate lam=2.0 uniform pool",
                          gen_fn(srv_uniform, PROMPTS, 2.0), {RU: 1, UA: None},
-                         (PA, KA, KR)))
+                         (PA, KA, KR, FA)))
     rows.append(run_path(torch, ops, "generate lam=2.0 engine=False",
                          gen_fn(srv, PROMPTS[:4], 2.0, engine=False),
-                         {RU: 1, UA: None}, (PA, KA, KR)))
+                         {RU: 1, UA: None}, (PA, KA, KR, FA)))
 
-    # the K-means router (num_models=2, d_emb 768) in front of the same
-    # pool: routing is the kmeans_assign kernel and a gather
-    km_router = kmeans_pool_router(torch, dev)
-    srv_km = RoutedServer(pool, km_router, device=dev)
-    check_result(srv_km.generate(PROMPTS[:2], lam=2.0, max_new_tokens=MAX_NEW),
-                 pool, 2)                                    # warm-up
-    for lam in (0.0, 2.0):
-        rows.append(run_path(torch, ops, f"generate lam={lam} kmeans router",
-                             gen_fn(srv_km, PROMPTS, lam), {KA: 1, PA: None},
-                             (UA, RU, KR)))
+    # the K-means, MF and Elo routers (num_models=2, d_emb 768) in front of
+    # the same pool: K-means routes by the kmeans_assign kernel and a
+    # gather; MF and Elo by router_utility on their latent factors (dh 32)
+    # and anchor similarities (dh 20)
+    for fam, owns, others in (("kmeans", {KA: 1}, (UA, RU, KR, FA)),
+                              ("mf", {RU: 1}, (UA, KA, KR, FA)),
+                              ("elo", {RU: 1}, (UA, KA, KR, FA))):
+        srv_f = RoutedServer(pool, pool_router(torch, dev, fam), device=dev)
+        check_result(srv_f.generate(PROMPTS[:2], lam=2.0,
+                                    max_new_tokens=MAX_NEW), pool, 2)  # warm-up
+        for lam in (0.0, 2.0):
+            rows.append(run_path(torch, ops,
+                                 f"generate lam={lam} {fam} router",
+                                 gen_fn(srv_f, PROMPTS, lam),
+                                 {**owns, PA: None}, others))
 
     # full width, bf16: engine tokens vs per-request tokens (print only —
     # random weights leave near-ties in the argmax)
@@ -767,7 +911,7 @@ N_QUERIES = 36_000      # RouterBench's grid: 8 datasets × 11 models
 def fit_data(torch, dev) -> dict:
     """The synthetic corpus (36,000 queries × 8 tasks × 11 models, d_emb
     768) and its federated split under ``FedConfig()``, drawn on the card
-    from a seeded generator."""
+    from a seeded generator: returns (corpus, split)."""
     from repro_torch.config import FedConfig, RouterConfig
     from repro_torch.data.partition import federated_split
     from repro_torch.data.synthetic import make_eval_corpus
@@ -785,27 +929,30 @@ def fit_data(torch, dev) -> dict:
           "test_rows": int(split["test_global"]["x"].shape[0]),
           "train_mib": sum(v.numel() * v.element_size()
                            for v in tr.values()) / 2 ** 20})
-    return split
+    return corpus, split
 
 
-def kmeans_pool_router(torch, dev):
-    """A K-means router over the two pool models (num_models=2, d_emb 768),
-    fitted with ``fit_federated`` on a 4,000-query corpus of two models."""
+def pool_router(torch, dev, family: str):
+    """A router of ``family`` over the two pool models (num_models=2, d_emb
+    768), fitted with ``fit_federated`` on a 4,000-query corpus of two
+    models."""
     from repro_torch import routers
     from repro_torch.config import FedConfig, RouterConfig
     from repro_torch.data.partition import federated_split
     from repro_torch.data.synthetic import make_eval_corpus
+    rcfg = RouterConfig(num_models=2)
     gen = torch.Generator(device=dev).manual_seed(21)
     corpus = make_eval_corpus(gen, n_queries=4000, n_tasks=8, n_models=2,
-                              d_emb=768)
+                              d_emb=rcfg.d_emb)
     split = federated_split(gen, corpus, FedConfig())
-    router, _ = routers.fit_federated(
-        routers.make("kmeans", RouterConfig(num_models=2)), split["train"],
-        FedConfig(), gen=gen, device=dev)
+    router, _ = routers.fit_federated(routers.make(family, rcfg),
+                                      split["train"], FedConfig(), gen=gen,
+                                      device=dev)
     return router
 
 
-def run_fit(torch, ops, name: str, fn, owns: dict, extra=None) -> tuple:
+def run_fit(torch, ops, name: str, fn, owns: dict, extra=None,
+            phase: str = "fit") -> tuple:
     """One run of the fit path with every launch count set to 0 just before
     it and read just after. ``owns`` maps each kernel the run must launch
     to its expected count (None: any count > 0); every other kernel must
@@ -818,19 +965,40 @@ def run_fit(torch, ops, name: str, fn, owns: dict, extra=None) -> tuple:
         if (k in owns and n <= 0) or (want is not None and n != want):
             raise AssertionError(f"{name}: {n} launches of {k}, expected "
                                  f"{'> 0' if want is None else want}")
-    row = {"phase": "fit", "path": name, "seconds": dt, "launches": counts,
+    row = {"phase": phase, "path": name, "seconds": dt, "launches": counts,
            **(extra(out) if extra else {})}
     emit(row)
     return out, row
 
 
-def fit_phase(torch, dev, split) -> list:
-    """``fit_federated`` of "mlp" (30 rounds) and of "kmeans", ``fit_local``
-    of both on 3 clients (MLP 300 steps), ``eval_router`` on the global
-    test split and a route bucket, each a run with its own launch counts.
-    Checks every AUC lies between the cheapest model's accuracy and the
-    oracle's AUC, a repeated K-means fit is bit-identical, and the K-means
-    fit with the plain versions agrees with the kernels' fit."""
+def auc_bounds(torch, tg, models=None) -> tuple:
+    """(the cheapest model's accuracy, the oracle's frontier AUC) on the
+    test split ``tg``, over ``models`` (default: all) — the band every
+    fitted router's AUC must lie in."""
+    from repro_torch.core import policy
+    acc, cost = tg["acc_table"], tg["cost_table"]
+    if models is not None:
+        acc, cost = acc[:, models], cost[:, models]
+    oracle = policy.eval_router(lambda x: (acc, cost), tg["x"], acc, cost)[2]
+    return float(acc[:, int(torch.argmin(cost.mean(0)))].mean()), oracle
+
+
+def check_auc(name: str, auc: float, band: tuple) -> None:
+    """``auc`` within ``band`` up to 1e-6 (a router that sends everything
+    to the cheapest model scores its accuracy, averaged in another f32
+    order)."""
+    if not (math.isfinite(auc) and band[0] - 1e-6 <= auc <= band[1] + 1e-6):
+        raise AssertionError(f"{name}: AUC {auc!r} outside {band!r}")
+
+
+def fit_phase(torch, dev, split) -> tuple:
+    """``fit_federated`` of "mlp" and "mf" (30 rounds), "kmeans" and "elo"
+    (one-shot), ``fit_local`` of each on 3 clients (MLP and MF 300 steps),
+    ``eval_router`` on the global test split and a route bucket, each a run
+    with its own launch counts. Checks every AUC lies between the cheapest
+    model's accuracy and the oracle's AUC, a repeated K-means fit is
+    bit-identical, and the K-means fit with the plain versions agrees with
+    the kernels' fit. Returns (rows, {fit name: router})."""
     import os
 
     from repro_torch import routers
@@ -841,18 +1009,13 @@ def fit_phase(torch, dev, split) -> list:
     rcfg, fcfg = RouterConfig(), FedConfig()
     KA, KR, RU = "kmeans_assign", "kmeans_assign_reduce", "router_utility"
     train, tg = split["train"], split["test_global"]
-    rows, aucs = [], {}
+    rows, aucs, fitted = [], {}, {}
 
     def auc_of(r):
         return policy.eval_router(r.predict, tg["x"], tg["acc_table"],
                                   tg["cost_table"])[2]
 
-    class _Oracle:
-        predict = staticmethod(lambda x: (tg["acc_table"], tg["cost_table"]))
-
-    oracle = auc_of(_Oracle)
-    cheapest = int(torch.argmin(tg["cost_table"].mean(0)))
-    floor = float(tg["acc_table"][:, cheapest].mean())
+    floor, oracle = band = auc_bounds(torch, tg)
 
     def fit(name, family, federated, owns, seed, client=None, **kw):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -878,22 +1041,28 @@ def fit_phase(torch, dev, split) -> list:
                          lambda: router.route(tg["x"][:16], 1.0),
                          {KA: 1} if family == "kmeans" else {RU: 1})
         rows.append(row)
-        if not (math.isfinite(auc) and floor <= auc <= oracle):
-            raise AssertionError(f"{name}: AUC {auc!r} outside [cheapest "
-                                 f"model {floor!r}, oracle {oracle!r}]")
+        check_auc(name, auc, band)
         aucs.setdefault(name.split(" client")[0], []).append(auc)
+        fitted[name] = router
         return router
 
     iters = rcfg.kmeans_iters
     fit("fed mlp", "mlp", True, {}, 30)
+    fit("fed mf", "mf", True, {}, 32)
     # one launch per Lloyd step for all 10 clients × 3 restarts, then the
     # server's; kmeans_assign: the two final assignments and the statistics
     km = fit("fed kmeans", "kmeans", True, {KR: 2 * iters, KA: 3}, 31)
+    # Elo: the same anchors; its statistics are soft, so no third assign
+    fit("fed elo", "elo", True, {KR: 2 * iters, KA: 2}, 33)
     for i in range(3):
         fit(f"local mlp client {i}", "mlp", False, {}, 40 + i, client=i,
             steps=300)
+        fit(f"local mf client {i}", "mf", False, {}, 44 + i, client=i,
+            steps=300)
         fit(f"local kmeans client {i}", "kmeans", False, {KR: iters, KA: 2},
             50 + i, client=i)
+        fit(f"local elo client {i}", "elo", False, {KR: iters, KA: 1},
+            54 + i, client=i)
 
     def refit():
         gen = torch.Generator(device=dev).manual_seed(31)
@@ -933,11 +1102,245 @@ def fit_phase(torch, dev, split) -> list:
     if off.any() or abs(auc_p - aucs["fed kmeans"][0]) > 0.01:
         raise AssertionError("fed kmeans: the plain versions' fit disagrees "
                              "with the kernels' fit")
-    emit({"phase": "fit_aucs", "fed_mlp": aucs["fed mlp"][0],
-          "fed_kmeans": aucs["fed kmeans"][0],
-          "local_mlp_mean": sum(aucs["local mlp"]) / 3,
-          "local_kmeans_mean": sum(aucs["local kmeans"]) / 3,
+    emit({"phase": "fit_aucs",
+          **{f"fed_{f}": aucs[f"fed {f}"][0]
+             for f in ("mlp", "mf", "kmeans", "elo")},
+          **{f"local_{f}_mean": sum(aucs[f"local {f}"]) / 3
+             for f in ("mlp", "mf", "kmeans", "elo")},
           "oracle": oracle, "cheapest_model_acc": floor})
+    return rows, fitted
+
+
+def _holdout(torch, di: dict, seed: int, frac: float = 0.2) -> tuple:
+    """fig. 5's split of one client's rows into fit and calibration sets
+    through the w mask (20% held out for calibration)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w = di["w"].cpu().numpy()
+    idx = np.where(w > 0)[0]
+    rng.shuffle(idx)
+    cal = idx[:max(1, int(len(idx) * frac))]
+    w_fit, w_cal = w.copy(), np.zeros_like(w)
+    w_fit[cal], w_cal[cal] = 0.0, 1.0
+    dev = di["w"].device
+    return ({**di, "w": torch.as_tensor(w_fit, device=dev)},
+            {**di, "w": torch.as_tensor(w_cal, device=dev)})
+
+
+def features_phase(torch, dev, corpus, split, fitted: dict) -> list:
+    """The paper's pool-evolution and privacy features at the §1 width,
+    each a run with its own launch counts:
+
+    * model onboarding (fig. 4, §6.3): every family fitted on 8 of the 11
+      models of a fresh split, then the 3 withheld models added from a
+      calibration set of 10% of each client's prompts — MLP and MF train
+      only their new head columns (the rest must stay bit-identical),
+      K-means and Elo estimate the new columns' statistics;
+    * client onboarding (App. D.3): every family fitted on clients 0–6
+      through ``client_mask``, then clients 7–9 join — MLP and MF by 15
+      rounds of FedAvg on the new clients with distillation (β 1), K-means
+      and Elo by exact statistics merges;
+    * personalization (fig. 5, §6.4) on clients 0–2: the federated and a
+      local router (fit on 80% of the client's rows, calibrated on the
+      other 20%) mixed by calibration error, scored on the client's own
+      test set, for MLP and K-means;
+    * secure aggregation: the MLP FedAvg fit with pairwise masks at scale 0
+      bit-identical to plain FedAvg on the same seed (3 rounds), and at
+      scale 10 within 1e-6·scale·N per parameter after one round of N = 6
+      active clients (each upload carries masks of ~scale·√N/w̃_i, rounded
+      in f32 and weighted back by w̃_i)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import routers
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.core import elo_router as EL
+    from repro_torch.core import personalization as P
+    from repro_torch.core import policy
+    from repro_torch.data.partition import client_slice, federated_split
+    from repro_torch.data.synthetic import observe
+    from repro_torch.fed.aggregators import SecureAggAggregator
+    from repro_torch.kernels import ops
+    from repro_torch.train.optim import tree_leaves
+    KA, KR = "kmeans_assign", "kmeans_assign_reduce"
+    rcfg, fcfg = RouterConfig(), FedConfig()
+    iters = rcfg.kmeans_iters
+    one_shot = {"kmeans": {KR: 2 * iters, KA: 3}, "elo": {KR: 2 * iters, KA: 2}}
+    rows = []
+
+    def path(name, fn, owns, extra=None):
+        out, row = run_fit(torch, ops, name, fn, owns, extra)
+        rows.append(row)
+        return out
+
+    def auc(predict, te, models=None):
+        acc, cost = te["acc_table"], te["cost_table"]
+        if models is not None:
+            acc, cost = acc[:, models], cost[:, models]
+        return policy.eval_router(predict, te["x"], acc, cost)[2]
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # ---- model onboarding (fig. 4)
+    M = rcfg.num_models
+    base_models, withheld = list(range(M - 3)), list(range(M - 3, M))
+    fcfg11 = dataclasses.replace(fcfg, seed=11)
+    g = gen(70)
+    split8 = federated_split(g, corpus, fcfg11, model_subset=base_models)
+    tg8 = split8["test_global"]
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(np.concatenate([
+        rng.choice(t, size=max(1, len(t) // 10), replace=False)
+        for t in split8["train_idx"]]), device=dev)
+    parts = []
+    for m_new in withheld:
+        a, c = observe(g, corpus, q, torch.full_like(q, m_new))
+        parts.append({"x": corpus["x"][q],
+                      "m": torch.full(q.shape, m_new, dtype=torch.int32,
+                                      device=dev),
+                      "acc": a, "cost": c, "w": torch.ones(q.shape,
+                                                           device=dev)})
+    calib = {k: torch.cat([pt[k] for pt in parts]) for k in parts[0]}
+    band8, band11 = auc_bounds(torch, tg8, base_models), auc_bounds(torch, tg8)
+    rcfg8 = RouterConfig(num_models=M - 3)
+    res = {}
+    for i, fam in enumerate(("mlp", "mf", "kmeans", "elo")):
+        base = path(f"{fam} on {M - 3} of {M} models",
+                    lambda: routers.fit_federated(
+                        routers.make(fam, rcfg8), split8["train"], fcfg11,
+                        gen=gen(71 + i), device=dev)[0],
+                    one_shot.get(fam, {}))
+        if fam in ("mlp", "mf"):
+            grown = path(f"{fam} onboard {len(withheld)} models",
+                         lambda: base.onboard_model(calib, gen=81 + i,
+                                                    fcfg=fcfg11, n_new=3,
+                                                    steps=400), {})
+            frozen = "trunk" if fam == "mlp" else "proj"
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(grown.state[frozen]),
+                tree_leaves(base.state[frozen])))
+            same &= all(torch.equal(grown.state["heads"][k][..., :M - 3],
+                                    base.state["heads"][k])
+                        for k in base.state["heads"])
+            if not same:
+                raise AssertionError(f"{fam} model onboarding moved a "
+                                     "frozen parameter")
+        else:
+            def add_all(base=base):
+                r = base
+                for pt in parts:
+                    r = r.onboard_model({k: pt[k] for k in
+                                         ("x", "acc", "cost", "w")})
+                return r
+            grown = path(f"{fam} onboard {len(withheld)} models", add_all,
+                         {KA: len(withheld)} if fam == "kmeans" else {})
+        if grown.num_models != M:
+            raise AssertionError(f"{fam}: {grown.num_models} models after "
+                                 "onboarding")
+        A, C = grown.predict(tg8["x"])
+        res[fam] = {"auc_before": auc(base.predict, tg8, base_models),
+                    "auc_after": auc(grown.predict, tg8),
+                    # how often a withheld model wins at the grid's
+                    # smallest λ, where accuracy decides
+                    "new_model_share_lam_0.01": float(
+                        (torch.argmax(A - 0.01 * C, -1) >= M - 3).float()
+                        .mean())}
+        if fam == "elo":      # how peaked the anchor kernel is at this width
+            res[fam]["kernel_max_weight_mean"] = float(EL.kernel_weights(
+                tg8["x"], grown.state["anchors"], grown.state["tau"]).amax(
+                -1).mean())
+        check_auc(f"{fam} before onboarding", res[fam]["auc_before"], band8)
+        check_auc(f"{fam} after onboarding", res[fam]["auc_after"], band11)
+    emit({"phase": "onboard_models", "calibration_rows": int(q.numel()),
+          "aucs": res, "cheapest_and_oracle_8": band8,
+          "cheapest_and_oracle_11": band11})
+
+    # ---- client onboarding (App. D.3)
+    train, tg = split["train"], split["test_global"]
+    band = auc_bounds(torch, tg)
+    mask = (torch.arange(fcfg.num_clients, device=dev) < 7).float()
+    new = {k: v[7:] for k, v in train.items()}
+    res = {}
+    for i, fam in enumerate(("mlp", "mf", "kmeans", "elo")):
+        base = path(f"{fam} on clients 0-6 (client_mask)",
+                    lambda: routers.fit_federated(
+                        routers.make(fam, rcfg), train, fcfg, gen=gen(91 + i),
+                        device=dev, client_mask=mask)[0],
+                    one_shot.get(fam, {}))
+        if fam in ("mlp", "mf"):
+            joined = path(f"{fam} onboard clients 7-9",
+                          lambda: base.onboard_clients(
+                              new, gen=101 + i, fcfg=fcfg, rounds=15,
+                              beta=1.0), {})
+        else:
+            joined = path(f"{fam} onboard clients 7-9",
+                          lambda: base.onboard_clients(new),
+                          {KA: 1} if fam == "kmeans" else {})
+        res[fam] = {"auc_before": auc(base.predict, tg),
+                    "auc_after": auc(joined.predict, tg)}
+        for k, v in res[fam].items():
+            check_auc(f"{fam} client onboarding {k}", v, band)
+    emit({"phase": "onboard_clients", "aucs": res})
+
+    # ---- personalization (fig. 5) on 3 clients
+    fed, kfed = fitted["fed mlp"], fitted["fed kmeans"]
+    res = []
+    for i in range(3):
+        te = split["test"][i]
+
+        def personalize(i=i, te=te):
+            fit_i, cal_i = _holdout(torch, client_slice(train, i), 100 + i)
+            loc = routers.fit_local(routers.make("mlp", rcfg), fit_i, fcfg,
+                                    gen=gen(110 + i), device=dev,
+                                    steps=300)[0]
+            kloc = routers.fit_local(routers.make("kmeans", rcfg), fit_i,
+                                     fcfg, gen=gen(120 + i), device=dev)[0]
+            ada, _ = P.make_personalized(fed.predict, loc.predict, cal_i, M)
+            kada, _ = P.make_personalized(kfed.predict, kloc.predict, cal_i,
+                                          M)
+            return {"fed": auc(fed.predict, te),
+                    "loc": auc(fitted[f"local mlp client {i}"].predict, te),
+                    "ada": auc(ada, te), "kfed": auc(kfed.predict, te),
+                    "kloc": auc(fitted[f"local kmeans client {i}"].predict,
+                                te),
+                    "kada": auc(kada, te)}
+        r = path(f"personalize client {i}", personalize,
+                 {KR: iters, KA: None}, lambda r: {"local_test_auc": r})
+        for k, v in r.items():          # a client's own test set: any mix
+            check_auc(f"personalization client {i} {k}", v, (0.0, 1.0))
+        res.append(r)
+    emit({"phase": "personalization", "clients": res,
+          "mean": {k: sum(r[k] for r in res) / len(res) for k in res[0]}})
+
+    # ---- secure aggregation
+    def sfit(agg, rounds):
+        return lambda: routers.fit_federated(
+            routers.make("mlp", rcfg), train, fcfg, gen=gen(130), device=dev,
+            rounds=rounds, aggregator=agg)[0]
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in
+                   zip(tree_leaves(a.state), tree_leaves(b.state)))
+
+    plain3 = path("fedavg 3 rounds", sfit(None, 3), {})
+    zero3 = path("secure agg scale 0, 3 rounds",
+                 sfit(SecureAggAggregator(scale=0.0), 3), {})
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(plain3.state),
+                                                 tree_leaves(zero3.state)))
+    plain1 = path("fedavg 1 round", sfit(None, 1), {})
+    ten1 = path("secure agg scale 10, 1 round",
+                sfit(SecureAggAggregator(scale=10.0), 1), {})
+    n_active = max(1, round(fcfg.participation * fcfg.num_clients))
+    tol = 1e-6 * 10.0 * n_active
+    d = max_diff(plain1, ten1)
+    emit({"phase": "secure_agg", "scale0_bit_identical": same,
+          "scale10_max_abs_diff": d, "scale10_tolerance": tol})
+    if not same or not 0.0 < d <= tol:
+        raise AssertionError(f"secure aggregation: scale 0 bit-identical "
+                             f"{same}, scale 10 off by {d!r} (tolerance "
+                             f"{tol!r})")
     return rows
 
 
@@ -1025,6 +1428,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import router_utility as ru
 
@@ -1045,19 +1449,27 @@ def main() -> None:
                         if "registers" in ln or "spill" in ln]
                     for n, log in logs.items()}})
 
-    split = fit_data(torch, dev)
+    corpus, split = fit_data(torch, dev)
     t0 = time.perf_counter()
     rows = [kernel_router(torch, ru, dev), *kernel_decode(torch, F, da, dev),
-            *kernel_kmeans(torch, F, km, dev, split)]
+            *kernel_kmeans(torch, F, km, dev, split),
+            kernel_flash(torch, F, fa, dev)]
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     paths = main_path(torch, dev)
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})
+    paths.append(flash_path(torch, dev))
     t0 = time.perf_counter()
-    paths += fit_phase(torch, dev, split)
-    profile_fit(torch, dev, split)
+    fit_rows, fitted = fit_phase(torch, dev, split)
+    paths += fit_rows
     emit({"phase": "fit_path_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    paths += features_phase(torch, dev, corpus, split, fitted)
+    emit({"phase": "features_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    profile_fit(torch, dev, split)
+    emit({"phase": "profile_fit_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     reduced_parity(torch, dev)
     emit({"phase": "reduced_done", "seconds": time.perf_counter() - t0})

@@ -56,9 +56,11 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
 
 
 def router_state_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
-    """The port's router state for a reference router state tree: MLP
-    params or FedAvg's fitted params ({"trunk": [...], "heads": {...}}),
-    or a K-means router ({"centroids", "A", "C", "n"})."""
+    """The port's router state for a reference router state tree, leaf by
+    leaf: MLP params ({"trunk": [...], "heads": {...}}), MF params
+    ({"proj": {...}, "heads": {...}}), a K-means router ({"centroids", "A",
+    "C", "n"}) or an Elo router ({"anchors", "rating", "C", "a", "c", "n",
+    "tau"}, "tau" 0-d)."""
     return _tree(tree, resolve_device(device))
 
 

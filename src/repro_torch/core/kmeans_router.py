@@ -16,8 +16,9 @@ model never observed anywhere gets the pessimistic (acc 0, cost c_max).
 Stage (i) runs every client's restarts as one batch of Lloyd problems.
 The per-cluster sums are one-hot products (fixed summation order on the
 card, no atomics), so a fit with one generator seed reproduces bit for
-bit. ``fed_kmeans_router_sharded`` and ``client_mask`` (App. D.3
-onboarding) are not ported yet.
+bit. ``client_mask`` (App. D.3) leaves masked clients out of the server's
+K-means and the statistics. ``fed_kmeans_router_sharded`` is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -57,15 +58,25 @@ def _finalize(a_sum, c_sum, n, c_max: float):
     return A, C
 
 
-def fed_centroids(gen, data, rcfg: RouterConfig):
+def _mask(client_mask, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(client_mask, dtype=torch.float32,
+                           device=like.device)
+
+
+def fed_centroids(gen, data, rcfg: RouterConfig, *, client_mask=None):
     """Alg. 2 stages (i)+(ii): local K-means per client (centroid, size
-    uploads) → server size-weighted K-means → (k_global, d) centers."""
+    uploads) → server size-weighted K-means → (k_global, d) centers.
+    ``client_mask`` (N,) zeroes the sizes that masked clients upload.
+    Shared by every one-shot family that anchors statistics to a federated
+    partition of embedding space (K-means, Elo)."""
     N, D, d = data["x"].shape
     kl = rcfg.k_local
     # (i) local K-means on every client at once (padded rows weigh 0)
     cents, _, assign = _kmeans(gen, data["x"], (data["w"] > 0).float(), kl,
                                rcfg.kmeans_iters, rcfg.n_init)
     sizes = (F.one_hot(assign, kl).float() * data["w"][..., None]).sum(1)
+    if client_mask is not None:
+        sizes = sizes * _mask(client_mask, sizes)[:, None]
     # (ii) server: size-weighted K-means over the uploaded centroids
     centroids, _ = kmeans(gen, cents.reshape(N * kl, d), rcfg.k_global,
                           iters=rcfg.kmeans_iters, n_init=rcfg.n_init,
@@ -73,13 +84,17 @@ def fed_centroids(gen, data, rcfg: RouterConfig):
     return centroids
 
 
-def fed_kmeans_router(gen, data, rcfg: RouterConfig, *,
-                      num_models=None) -> dict:
-    """Algorithm 2. data: stacked padded client tensors (see federated.py)."""
+def fed_kmeans_router(gen, data, rcfg: RouterConfig, *, num_models=None,
+                      client_mask=None) -> dict:
+    """Algorithm 2. data: stacked padded client tensors (see federated.py);
+    ``client_mask`` (N,) keeps only the eligible clients' uploads."""
     M = num_models if num_models is not None else rcfg.num_models
-    centroids = fed_centroids(gen, data, rcfg)
+    centroids = fed_centroids(gen, data, rcfg, client_mask=client_mask)
     # (iii) clients → per-(cluster, model) stats; (iv) weighted aggregation
     a, c, n = _cluster_stats(centroids, data, rcfg.k_global, M)
+    if client_mask is not None:
+        m3 = _mask(client_mask, a)[:, None, None]
+        a, c, n = a * m3, c * m3, n * m3
     a, c, n = a.sum(0), c.sum(0), n.sum(0)
     A, C = _finalize(a, c, n, rcfg.c_max)
     return {"centroids": centroids, "A": A, "C": C, "n": n}

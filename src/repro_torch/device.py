@@ -35,3 +35,8 @@ def generator(gen: Union[torch.Generator, int],
         raise ValueError(f"generator lives on {gen.device}, the result on "
                          f"{device}: draw on the device that keeps it")
     return gen
+
+
+def on_device(data: dict, device: torch.device) -> dict:
+    """A flat dict of tensors or numpy arrays, as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in data.items()}

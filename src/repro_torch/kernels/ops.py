@@ -12,6 +12,7 @@ import os
 from typing import Dict, Optional
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import router_utility as _ru
 
@@ -74,7 +75,16 @@ def kmeans_assign_reduce(x, cents, w, *, impl: Optional[str] = None):
     return _km.kmeans_assign_reduce_plain(x, cents, w)
 
 
-_ALL_COUNTS = (_ru.COUNTS, _da.COUNTS, _km.COUNTS)
+def flash_attention(q, k, v, *, causal: bool = True,
+                    impl: Optional[str] = None):
+    """Prefill attention of q, k, v (B, S, H, hd) with equal head counts:
+    f32 scores and softmax, p·v in f32, output in q's dtype."""
+    if resolve_impl(impl, q) == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, causal=causal)
+    return _fa.flash_attention_plain(q, k, v, causal=causal)
+
+
+_ALL_COUNTS = (_ru.COUNTS, _da.COUNTS, _km.COUNTS, _fa.COUNTS)
 
 
 def launch_counts() -> Dict[str, int]:

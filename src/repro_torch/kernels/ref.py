@@ -44,6 +44,20 @@ def router_utility_ref(h, acc_w, acc_b, cost_w, cost_b, lam):
     return torch.argmax(U, dim=-1).to(torch.int32), U.amax(dim=-1)
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """q, k, v: (B, S, H, hd) (same head count — the caller repeats GQA
+    heads). Scores in f32 from upcast q and k, scaled by hd^-0.5; the causal
+    form masks later keys with -1e30; softmax and p·v in f32. Returns
+    (B, S, H, hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    if causal:
+        m = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+        scores = torch.where(m, scores, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
 def _n_valid_col(n_valid, B: int, device) -> torch.Tensor:
     nv = torch.as_tensor(n_valid, dtype=torch.int32, device=device)
     return nv.reshape(-1).expand(B).reshape(B, 1, 1, 1)

@@ -1,8 +1,8 @@
 """The unified ``Router`` interface (PyTorch counterpart of
 ``repro/routers/base.py``).
 
-Every family — parametric (MLP, Alg. 1) or nonparametric (K-means,
-Alg. 2) — exposes the same small surface:
+Every family — parametric (MLP and MF, Alg. 1) or nonparametric (K-means
+and Elo, Alg. 2) — exposes the same small surface:
 
   * ``init(gen, device=None)``    fresh state (no-op for one-shot families)
   * ``predict(x) -> (A, C)``      per-query accuracy / cost estimates

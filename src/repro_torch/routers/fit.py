@@ -16,15 +16,10 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import torch
-
 from repro_torch.config import FedConfig
-from repro_torch.device import DeviceLike, generator, resolve_device
+from repro_torch.device import (DeviceLike, generator, on_device,
+                                resolve_device)
 from repro_torch.routers.base import Router
-
-
-def _on(data: dict, dev: torch.device) -> dict:
-    return {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
 
 
 def _normalize_hist(hist: dict) -> dict:
@@ -42,11 +37,11 @@ def fit_federated(router: Router, data: dict, fcfg: FedConfig, *, gen,
     ``core/federated.py`` for the layout). Returns a NEW fitted router plus
     the history dict. ``eval_fn`` receives a fitted ``Router`` (per round
     for iterative families, once for one-shot families); ``family_kw``
-    forwards family-specific knobs (optimizer=, full_batch=,
-    dp_sigma=, aggregator=, eval_every=)."""
+    forwards family-specific knobs (optimizer=, full_batch=, freeze=,
+    distill=, client_mask=, dp_sigma=, aggregator=, eval_every=)."""
     dev = resolve_device(device)
     new_router, hist = router._fit_federated(
-        generator(gen, dev), _on(data, dev), fcfg, rounds=rounds,
+        generator(gen, dev), on_device(data, dev), fcfg, rounds=rounds,
         eval_fn=eval_fn, mesh=mesh, **family_kw)
     return new_router, _normalize_hist(hist)
 
@@ -57,6 +52,7 @@ def fit_local(router: Router, data_i: dict, fcfg: FedConfig, *, gen,
     minibatch ERM for parametric families (steps=, optimizer=), local
     K-means + own statistics for nonparametric ones (k=)."""
     dev = resolve_device(device)
-    new_router, hist = router._fit_local(generator(gen, dev), _on(data_i, dev),
+    new_router, hist = router._fit_local(generator(gen, dev),
+                                         on_device(data_i, dev),
                                          fcfg, **family_kw)
     return new_router, _normalize_hist(hist)

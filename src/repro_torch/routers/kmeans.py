@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import kmeans_router as KR
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.routers.base import Router
 from repro_torch.routers.registry import register
@@ -54,16 +54,16 @@ class KMeansRouter(Router):
         """§6.3, training-free: estimate the new model's per-cluster stats
         from calibration evals {"x","acc","cost","w"}."""
         self._require_state()
-        return self.with_state(
-            KR.add_model_stats(self.state, calib, c_max=self.rcfg.c_max))
+        return self.with_state(KR.add_model_stats(
+            self.state, on_device(calib, self.device), c_max=self.rcfg.c_max))
 
     def onboard_clients(self, data_new, **kw) -> "KMeansRouter":
         """App. D.3, training-free: count-weighted merge of the new
         clients' statistics against the existing centers."""
         self._require_state()
-        return self.with_state(
-            KR.merge_client_stats(self.state, data_new, self.rcfg,
-                                  num_models=self.num_models))
+        return self.with_state(KR.merge_client_stats(
+            self.state, on_device(data_new, self.device), self.rcfg,
+            num_models=self.num_models))
 
     # --------------------------------------------------------------- fitting
 
@@ -77,12 +77,9 @@ class KMeansRouter(Router):
                              f"options: {', '.join(sorted(kw))}")
         if mesh is not None:
             KR.fed_kmeans_router_sharded()
-        if client_mask is not None:
-            raise NotImplementedError(
-                "client_mask= (App. D.3 onboarding) is not ported to the "
-                "PyTorch fit yet")
         state = KR.fed_kmeans_router(gen, data, self.rcfg,
-                                     num_models=self._num_models)
+                                     num_models=self._num_models,
+                                     client_mask=client_mask)
         new = self.with_state(state)
         return new, {"loss": [], "eval": [eval_fn(new)] if eval_fn else []}
 

@@ -110,6 +110,20 @@ class SGD:
         return new, step
 
 
+def masked_update(opt, grads, state, params, freeze=None):
+    """``opt.update`` under a freeze mask (a tree like the unstacked params,
+    1 = train, 0 = frozen): the mask multiplies the gradients, so the
+    moments see the masked gradients, and then gates the whole step,
+    weight decay included, so a frozen entry keeps its value to the bit.
+    ``freeze=None`` is ``opt.update``."""
+    if freeze is None:
+        return opt.update(grads, state, params)
+    grads = tree_map(lambda g, f: g * f, grads, freeze)
+    new, state = opt.update(grads, state, params)
+    return tree_map(lambda n, o, f: n * f + o * (1 - f), new, params,
+                    freeze), state
+
+
 def global_norm(tree, *, lead: int = 0) -> torch.Tensor:
     """√(Σ g²) over every leaf; with ``lead=1`` one norm per client (the
     leading axis is kept, every other axis is summed)."""

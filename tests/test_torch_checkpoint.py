@@ -4,9 +4,10 @@ A router state saved by the reference (``Router.save``) loads into the
 port (``routers.load``), saves back byte for byte and predicts what the
 reference predicts; the other way round, a router fitted and saved by the
 port loads into the reference, saves back byte for byte and predicts the
-same. Both families are checked.
-Predictions agree to 1e-5 (MLP: f32 trunk products in another order) and
-exactly (K-means: the same table rows gathered at the same assignments).
+same. All four families are checked.
+Predictions agree to 1e-5 (MLP and MF: f32 products in another order; Elo:
+the f32 distance expansion and softmax over the anchors) and exactly
+(K-means: the same table rows gathered at the same assignments).
 """
 import jax
 import jax.numpy as jnp
@@ -44,9 +45,11 @@ def _jax_router(family):
     """A reference router with random state; the MLP state goes through
     ``jax.tree.map``, which sorts dict keys, as a fitted state's are."""
     rcfg = JRouterConfig(d_emb=D_EMB, num_models=11, hidden=(16, 16))
-    if family == "mlp":
-        r = jrouters.make("mlp", rcfg).init(jax.random.PRNGKey(3))
+    if family in ("mlp", "mf"):
+        r = jrouters.make(family, rcfg).init(jax.random.PRNGKey(3))
         return r.with_state(jax.tree.map(lambda a: a, r.state))
+    if family == "elo":              # a cold-start prior: a fitted structure
+        return jrouters.make("elo", rcfg).init(jax.random.PRNGKey(5))
     ks = jax.random.split(jax.random.PRNGKey(4), 4)
     K, M = rcfg.k_global, rcfg.num_models
     state = {"centroids": jax.random.normal(ks[0], (K, D_EMB)),
@@ -64,7 +67,7 @@ def _assert_same_predictions(jr, tr, x, exact):
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **tol)
 
 
-@pytest.mark.parametrize("family", ["mlp", "kmeans"])
+@pytest.mark.parametrize("family", ["mlp", "kmeans", "mf", "elo"])
 def test_reference_checkpoint_loads_and_saves_back(family, data, tmp_path):
     _, x = data
     jr = _jax_router(family)
@@ -79,7 +82,7 @@ def test_reference_checkpoint_loads_and_saves_back(family, data, tmp_path):
     _assert_same_predictions(jr, tr, x, exact=family == "kmeans")
 
 
-@pytest.mark.parametrize("family", ["mlp", "kmeans"])
+@pytest.mark.parametrize("family", ["mlp", "kmeans", "mf", "elo"])
 def test_port_checkpoint_loads_into_the_reference(family, data, tmp_path):
     split, x = data
     rcfg = RouterConfig(d_emb=D_EMB, hidden=(16, 16))

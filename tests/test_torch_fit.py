@@ -305,7 +305,7 @@ def test_fit_local_and_eval_hooks(fed_data):
     with pytest.raises(NotImplementedError, match="cohort"):
         routers.fit_federated(routers.make("mlp", tr), train, tf, gen=1,
                               device="cpu", cohort=2)
-    with pytest.raises(NotImplementedError, match="expansion"):
+    with pytest.raises(ValueError, match="gen= and fcfg="):
         fed.onboard_model({})
 
 

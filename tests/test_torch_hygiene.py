@@ -51,7 +51,12 @@ def test_port_has_every_slice_module():
             "data/synthetic.py", "data/partition.py", "core/policy.py",
             "fed/aggregators.py", "core/federated.py", "core/kmeans.py",
             "core/kmeans_router.py", "routers/fit.py", "routers/kmeans.py",
-            "quickstart.py"]
+            "quickstart.py",
+            # slice 3: the last kernel and the paper's remaining features
+            "kernels/flash_attention.py", "kernels/csrc/flash_attention.cu",
+            "core/mf_router.py", "routers/mf.py", "core/expansion.py",
+            "core/elo_router.py", "routers/elo.py",
+            "core/personalization.py", "core/secure_agg.py"]
     pkg = ROOT / "src" / "repro_torch"
     assert [w for w in want if not (pkg / w).is_file()] == []
 
@@ -99,7 +104,11 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
                         kmeans_iters=2, n_init=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         routers.make("kmeans", kcfg).init(0)
-    for fam, cfg in (("mlp", rcfg), ("kmeans", kcfg)):
+    for fam in ("mf", "elo"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            routers.make(fam, kcfg).init(0)
+    for fam, cfg in (("mlp", rcfg), ("kmeans", kcfg), ("mf", kcfg),
+                     ("elo", kcfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             routers.fit_federated(routers.make(fam, cfg), data, fcfg, gen=0)
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -220,4 +220,5 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
                                    "decode_attention": 0,
                                    "paged_decode_attention": 0,
                                    "kmeans_assign": 0,
-                                   "kmeans_assign_reduce": 0}
+                                   "kmeans_assign_reduce": 0,
+                                   "flash_attention": 0}
