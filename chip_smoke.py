@@ -6,8 +6,9 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc``, holds each kernel against
 its plain PyTorch version (at the serving shapes, at the shapes of the
-reference's kernel tests and at the router fit's shapes) and times both,
-then drives the port's main paths, with the launch counters reset just
+reference's kernel tests and at the router fit's shapes), times both and
+times each kernel in rounds interleaved with the one PyTorch call that
+computes its function (with and without host work), then drives the port's main paths, with the launch counters reset just
 before each path and read just after it:
 
 * routed serving of qwen2-1.5b and yi-6b at full published width and
@@ -100,6 +101,52 @@ def median_ms(torch, fn, reps: int = 50, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+#: rounds of ``interleaved_ms``: kernel and library call alternate, so a
+#: drift of the card's clocks or of its neighbours hits both alike
+ROUNDS = 5
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device time per call of ``fn``, without the host work (argument
+    checks, allocation, launch) that ``median_ms`` includes: ``calls``
+    calls queued behind a ~10 ms spin kernel, so that the host has issued
+    them all before the first runs, then timed back to back by events."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def interleaved_ms(torch, kern, lib=None, reps: int = 10) -> dict:
+    """``kern`` and ``lib`` timed in ``ROUNDS`` alternating rounds (kernel,
+    library, kernel, ...), each round the median of ``reps`` event-timed
+    calls. Returns the medians over the rounds (``ms``, ``library_ms``,
+    None without a library call), each round's times and the per-round
+    kernel/library ratio's median and min–max spread; and each function's
+    device time per call (``device_ms``, ``library_device_ms``)."""
+    ks, ls = [], []
+    for _ in range(ROUNDS):
+        ks.append(median_ms(torch, kern, reps=reps, warmup=1))
+        if lib is not None:
+            ls.append(median_ms(torch, lib, reps=reps, warmup=1))
+    out = {"ms": statistics.median(ks), "library_ms": None, "ms_rounds": ks,
+           "device_ms": device_ms(torch, kern)}
+    if lib is not None:
+        out["library_device_ms"] = device_ms(torch, lib)
+        ratio = [k / b for k, b in zip(ks, ls)]
+        out.update(library_ms=statistics.median(ls), library_rounds=ls,
+                   ratio={"median": statistics.median(ratio),
+                          "min": min(ratio), "max": max(ratio)})
+    return out
 
 
 def bf16_ulp(torch, x):
@@ -218,15 +265,15 @@ def kernel_router(torch, ru, dev) -> dict:
     args = (*heads(16, 2), 2.0)
     errs.append(_check_router(torch, ru, args, "router_utility timed args"))
     b_ms, by = _router_bound(16, 512, 2)
+    t = interleaved_ms(torch, lambda: ru.router_utility_cuda(*args))
     return {"name": "router_utility", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/router_utility.cu",
             "replaces": "src/repro/kernels/router_utility.py:32",
             "shape": "h (16, 512) f32, M 2",
             "max_abs_err": max(e for e, _ in errs),
             "err_over_tol": max(r for _, r in errs),
-            "ms": median_ms(torch, lambda: ru.router_utility_cuda(*args)),
             "plain_ms": median_ms(torch, lambda: ru.router_utility_plain(*args)),
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": by, **t}
 
 
 def _n_valid_cases(torch, B: int, S: int, gen, dev):
@@ -250,7 +297,7 @@ def _attn_cost(q, kv_dtype, nv, Hkv: int, hd: int, extra_bytes: int):
     return by, ops
 
 
-def _sdpa_ms(torch, F, q, k, v, nv):
+def _sdpa_call(torch, F, q, k, v, nv):
     """One library call computing the same function: SDPA on the gathered
     and head-expanded K/V with a validity mask (timed only)."""
     B, Hkv, g, hd = q.shape
@@ -260,8 +307,7 @@ def _sdpa_ms(torch, F, q, k, v, nv):
     vv = v.repeat_interleave(g, dim=1)
     mask = (torch.arange(S, device=q.device)[None, :]
             < nv[:, None]).reshape(B, 1, 1, S)
-    return median_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask))
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
 
 
 def kernel_decode(torch, F, da, dev) -> tuple:
@@ -329,11 +375,11 @@ def kernel_decode(torch, F, da, dev) -> tuple:
         "shape": "q (8, 4, 8, 128) bf16, cache S 256, ragged n_valid",
         "max_abs_err": max(e for e, _ in errs_c),
         "err_over_tol": max(r for _, r in errs_c),
-        "ms": median_ms(torch, lambda: da.decode_attention_cuda(q, k, v, nv)),
         "plain_ms": median_ms(torch, lambda: da.decode_attention_plain(
             q, k, v, nv)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": _sdpa_ms(torch, F, q, k, v, nv)}
+        **interleaved_ms(torch, lambda: da.decode_attention_cuda(q, k, v, nv),
+                         _sdpa_call(torch, F, q, k, v, nv))}
     kp = torch.randn((P, Hkv, ps, hd), generator=gen, device=dev).to(dt)
     vp = torch.randn((P, Hkv, ps, hd), generator=gen, device=dev).to(dt)
     pt = torch.randperm(P - 1, generator=gen, device=dev)[:B * npg].reshape(
@@ -352,13 +398,12 @@ def kernel_decode(torch, F, da, dev) -> tuple:
         "shape": "q (8, 4, 8, 128) bf16, pool (129, 4, 16, 128), 16 pages/row",
         "max_abs_err": max(e for e, _ in errs_p),
         "err_over_tol": max(r for _, r in errs_p),
-        "ms": median_ms(torch, lambda: da.paged_decode_attention_cuda(
-            q, kp, vp, pt, nv)),
         "plain_ms": median_ms(torch, lambda: da.paged_decode_attention_plain(
             q, kp, vp, pt, nv)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": _sdpa_ms(torch, F, q, paged_gather_ref(kp, pt),
-                               paged_gather_ref(vp, pt), nv)}
+        **interleaved_ms(torch, lambda: da.paged_decode_attention_cuda(
+            q, kp, vp, pt, nv), _sdpa_call(torch, F, q, paged_gather_ref(
+                kp, pt), paged_gather_ref(vp, pt), nv))}
     return uniform, paged
 
 
@@ -470,9 +515,8 @@ def _kmeans_times(torch, km, x, c, w) -> dict:
              lambda: km.kmeans_assign_reduce_plain(x, c, w), lib_reduce,
              True)):
         b_ms, b_by = bound(*_kmeans_cost(x, c, red), "float32")
-        out[name] = {"ms": median_ms(torch, kern, reps=20),
+        out[name] = {**interleaved_ms(torch, kern, lib),
                      "plain_ms": median_ms(torch, plain, reps=20),
-                     "library_ms": median_ms(torch, lib, reps=20),
                      "bound_ms": b_ms, "bound_by": b_by}
     return out
 
@@ -504,6 +548,15 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
                     (100, 40, 130), (1, 768, 20), (129, 768, 15)):
         _check_kmeans(torch, F, km, rnd(1, n, d), rnd(1, K, d), unif(1, n),
                       f"kmeans n={n} d={d} K={K}", errs)
+    # K 1, and R·K past one 64-centroid group of the assignment kernel
+    # (a problem straddles the groups), with d a multiple of 4 and not
+    for G, n, d, R, K in ((1, 97, 768, 1, 1), (2, 50, 24, 3, 1),
+                          (2, 301, 100, 3, 30), (2, 301, 101, 3, 30),
+                          (1, 77, 64, 1, 65)):
+        for dt in (f32, bf16):
+            _check_kmeans(torch, F, km, rnd(G, n, d, dtype=dt),
+                          rnd(G * R, K, d, dtype=dt), unif(G, n),
+                          f"kmeans G={G} n={n} d={d} R={R} K={K} {dt}", errs)
     x = rnd(1, 513, 77)                                      # 0/1 weights
     _check_kmeans(torch, F, km, x, rnd(1, 13, 77), (unif(1, 513) > 0.3).float(),
                   "kmeans 0/1 weights", errs)
@@ -516,8 +569,9 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
         raise AssertionError("kmeans: 2-D and batched calls differ")
 
     # the fit path's shapes: a local Lloyd step (10 clients × 3 restarts),
-    # the server step (150 uploads, K 20, 3 restarts), predict on the
-    # global test set and a route bucket of 16
+    # the server step (150 uploads, K 20, 3 restarts), the statistics over
+    # every client's rows (38,970), predict on the global test set, a
+    # route bucket of 16 and routing's 12 prompts
     tr, tg = data["train"], data["test_global"]
     xl, wl = tr["x"], (tr["w"] > 0).float()
     N, D_max, d = xl.shape
@@ -533,6 +587,10 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
                   "kmeans predict", errs)
     _check_kmeans(torch, F, km, xq[:, :16].contiguous(), cq,
                   torch.ones((1, 16), device=dev), "kmeans route bucket", errs)
+    _check_kmeans(torch, F, km, xq[:, :12].contiguous(), cq,
+                  torch.ones((1, 12), device=dev), "kmeans routing", errs)
+    xt, wt = xl.reshape(1, N * D_max, d), wl.reshape(1, N * D_max)
+    _check_kmeans(torch, F, km, xt, cq, wt, "kmeans statistics", errs)
 
     t_local = _kmeans_times(torch, km, xl, cl, wl)
     t_pred = _kmeans_times(torch, km, xq, cq, torch.ones(xq.shape[:2],
@@ -543,6 +601,8 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
               _kmeans_times(torch, km, xq[:, :16].contiguous(), cq,
                             torch.ones((1, 16), device=dev)),
               f"local Lloyd step (10, {D_max}, 768), K 15, R 3": t_local,
+              f"statistics (1, {N * D_max}, 768), K 20":
+              _kmeans_times(torch, km, xt, cq, wt),
               f"predict (1, {xq.shape[1]}, 768), K 20": t_pred}
     emit({"phase": "kmeans_times", "shapes": others})
     err = max(e for e, _ in errs)
@@ -607,20 +667,22 @@ def _flash_times(torch, F, fa, q, k, v) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     b_ms, b_by = bound(4 * q.numel() * q.element_size(),
                        4 * B * H * hd * S * (S + 1) / 2, "bfloat16")
-    return {"ms": median_ms(torch, lambda: fa.flash_attention_cuda(q, k, v),
-                            reps=20),
+    return {**interleaved_ms(torch, lambda: fa.flash_attention_cuda(q, k, v),
+                             lambda: F.scaled_dot_product_attention(
+                                 qt, kt, vt, is_causal=True)),
             "plain_ms": median_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v), reps=10),
-            "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), reps=20),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
 def kernel_flash(torch, F, fa, dev) -> dict:
-    """Kernel #6 against its plain version at the shapes of the reference's
-    test (tests/test_kernels.py::test_flash_attention), at sequence lengths
-    that are not a multiple of the 64-row tile, at S = 1 and at the path's
-    own shapes; timed at the served models' shapes."""
+    """Kernel #6 against its plain version, f32 (CUDA cores) and bf16
+    (tensor cores), causal and not, at the shapes of the reference's test
+    (tests/test_kernels.py::test_flash_attention), at the bf16 path's edges
+    for hd 64 and 128 (S not a multiple of the 128-row query and key tiles:
+    129, 200, 1000, 4095; S = 1; B > 1 with H > 1; a long non-causal case,
+    where no tile is skipped) and at the path's own shapes; timed at the
+    served models' shapes."""
     gen = torch.Generator(device=dev).manual_seed(14)
 
     def qkv(shape, dtype):
@@ -629,7 +691,10 @@ def kernel_flash(torch, F, fa, dev) -> dict:
 
     errs = []
     for shape in ((1, 128, 2, 64), (2, 256, 4, 64), (2, 512, 2, 128),
-                  (1, 200, 3, 128), (2, 1000, 2, 64), (3, 1, 2, 64)):
+                  (1, 200, 3, 128), (2, 1000, 2, 64), (3, 1, 2, 64),
+                  (2, 129, 3, 64), (2, 129, 3, 128), (1, 1000, 2, 128),
+                  (1, 4095, 2, 64), (1, 4095, 2, 128), (2, 1, 3, 128),
+                  (1, 2048, 8, 128)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = qkv(shape, dtype)
             for causal in (True, False):
@@ -1484,8 +1549,14 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_err",
             "kernel_ms", "err_over_tol", "shape", "launches_by_path")
+    # the interleaved rounds behind ms / library_ms, the spread of their
+    # ratio and the device times without host work (router_utility has no
+    # library call)
+    rounds = ("ms_rounds", "library_rounds", "ratio", "device_ms",
+              "library_device_ms")
     print(smi, flush=True)
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    emit({"kernels": [{**{k: r[k] for k in keys},
+                       **{k: r[k] for k in rounds if k in r}} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

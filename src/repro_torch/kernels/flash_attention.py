@@ -8,10 +8,14 @@ counts; the result is softmax(q·kᵀ·hd^-0.5)·v in q's dtype, causal or not.
 Dtype discipline (the reference's, which differs from the decode
 kernels'): q and k are upcast to f32 before the dot, the causal mask is
 -1e30, the softmax, its normalizer and p·v are f32 with v upcast and p
-never rounded, and the output is rounded once to q's dtype. The plain
-version computes that in one pass; the kernel runs it as an online
-softmax over 64-key tiles, so the two differ only in the order of f32
-sums (``chip_smoke.py`` states the bound that follows).
+never rounded as a whole, and the output is rounded once to q's dtype.
+The plain version computes that in one pass. The kernel runs it as an
+online softmax over key tiles: bf16 inputs on the tensor cores, with p·v
+taken as p_hi·v + p_lo·v where p_hi = bf16(p) and p_lo = bf16(p − p_hi)
+(``pv_split_emulation`` is that arithmetic in plain PyTorch); f32 inputs
+on the CUDA cores. So the two differ by the order of f32 sums and, in
+bf16, by the < 2^-17 of p that p_hi + p_lo drops (``chip_smoke.py`` states
+the bound that follows).
 """
 from __future__ import annotations
 
@@ -32,6 +36,28 @@ _HEAD_DIMS = (64, 128)
 flash_attention_plain = flash_attention_ref
 
 
+def pv_split_emulation(q, k, v, *, causal: bool = True, split: bool = True):
+    """The bf16 kernel's p·v arithmetic in plain PyTorch (for tests): p in
+    f32 from the f32 scores, then p·v as p_hi·v + p_lo·v with p_hi =
+    bf16(p) and p_lo = bf16(p − p_hi), each product of two bf16 values
+    exact in f32. ``split=False`` rounds p once to bf16 instead, the
+    shortcut the kernel does not take. Returns (B, S, H, hd) in q's
+    dtype."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    if causal:
+        S = q.shape[1]
+        m = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+        s = torch.where(m, s, torch.tensor(-1e30, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    hi = p.to(torch.bfloat16).float()
+    parts = [hi, (p - hi).to(torch.bfloat16).float()] if split else [hi]
+    out = sum(torch.einsum("bhqk,bkhd->bhqd", part, v.float())
+              for part in parts)
+    return (out / l).transpose(1, 2).to(q.dtype)
+
+
 def _fn():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention
@@ -46,8 +72,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Launch the CUDA kernel. q, k, v: contiguous (B, S, H, hd) CUDA
     tensors of one dtype (f32 or bf16), hd 64 or 128. Returns
     (B, S, H, hd) in q's dtype."""
-    if not q.is_cuda:
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q must be (B, S, H, hd); got "
                          f"{tuple(q.shape)}")
@@ -66,6 +90,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         raise ValueError("flash_attention: inputs must share one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if not q.is_cuda:
+        raise ValueError("flash_attention_cuda needs CUDA tensors")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k, v must start on a "
+                         "16-byte boundary (the kernel reads them with TMA)")
     out = torch.empty_like(q)
     lib, fn = _fn()
     err = fn(_DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),

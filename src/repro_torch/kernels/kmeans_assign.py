@@ -79,9 +79,9 @@ def kmeans_assign_reduce_plain(x, cents, w):
 
 
 def _args(x, cents, w=None):
+    x3, c3, w2, R, flat = _batched(x, cents, w)
     if not x.is_cuda:
         raise ValueError("the kmeans CUDA kernels need CUDA tensors")
-    x3, c3, w2, R, flat = _batched(x, cents, w)
     if x3.dtype != c3.dtype or x3.dtype not in (torch.float32,
                                                 torch.bfloat16):
         x3, c3 = x3.float(), c3.float()
@@ -93,20 +93,23 @@ def _args(x, cents, w=None):
     return x3, c3, w2, R, flat, dtype
 
 
-def _assign_fn(lib):
-    fn = lib.kmeans_assign
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = {
+    "kmeans_assign": [ctypes.c_int] + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2,
+    "kmeans_assign_reduce": [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4,
+}
+_FNS = {}   # name: (library, bound function) once loaded
 
 
-def _reduce_fn(lib):
-    fn = lib.kmeans_assign_reduce
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+def _fn(name):
+    if name not in _FNS:
+        lib = _build.load("kmeans_assign")
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _FNS[name] = (lib, fn)
+    return _FNS[name]
 
 
 def kmeans_assign_cuda(x, cents):
@@ -116,11 +119,9 @@ def kmeans_assign_cuda(x, cents):
     P, K, _ = c3.shape
     dev = x3.device
     assign = torch.empty((P, n), dtype=torch.int32, device=dev)
-    c2 = torch.empty((P, K), dtype=torch.float32, device=dev)
-    lib = _build.load("kmeans_assign")
-    err = _assign_fn(lib)(dtype, x3.data_ptr(), c3.data_ptr(), c2.data_ptr(),
-                          P, R, n, K, d, assign.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _fn("kmeans_assign")
+    err = fn(dtype, x3.data_ptr(), c3.data_ptr(), P, R, n, K, d,
+             assign.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "kmeans_assign")
     COUNTS["kmeans_assign"] += 1
     return assign[0] if flat else assign
@@ -136,12 +137,10 @@ def kmeans_assign_reduce_cuda(x, cents, w):
     assign = torch.empty((P, n), dtype=torch.int32, device=dev)
     sums = torch.empty((P, K, d), dtype=torch.float32, device=dev)
     cnts = torch.empty((P, K), dtype=torch.float32, device=dev)
-    c2 = torch.empty((P, K), dtype=torch.float32, device=dev)
-    lib = _build.load("kmeans_assign")
-    err = _reduce_fn(lib)(dtype, x3.data_ptr(), c3.data_ptr(), w2.data_ptr(),
-                          c2.data_ptr(), P, R, n, K, d, assign.data_ptr(),
-                          sums.data_ptr(), cnts.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _fn("kmeans_assign_reduce")
+    err = fn(dtype, x3.data_ptr(), c3.data_ptr(), w2.data_ptr(), P, R, n, K,
+             d, assign.data_ptr(), sums.data_ptr(), cnts.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "kmeans_assign_reduce")
     COUNTS["kmeans_assign_reduce"] += 1
     return (assign[0], sums[0], cnts[0]) if flat else (assign, sums, cnts)

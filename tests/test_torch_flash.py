@@ -102,3 +102,78 @@ def test_flash_cuda_refuses_cpu_tensors_without_building(monkeypatch):
     assert ops.flash_attention(q, q, q).shape == q.shape   # the plain version
     assert ops.launch_counts() == before
     assert before["flash_attention"] == 0
+
+
+# ------------------------------------------------- the bf16 kernel's design
+
+
+def _bf16_ulp(x):
+    ax = x.abs().float().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(ax)) - 7)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_pv_split_stays_within_the_chip_tolerance(causal):
+    """The bf16 kernel computes p·v as p_hi·v + p_lo·v (p_hi = bf16(p),
+    p_lo = bf16(p − p_hi)). On a 4,096-key case that arithmetic stays
+    within chip_smoke.py's bf16 tolerance of the plain version, 1 ulp +
+    2e-5·A (A = the attention over |v|); rounding p once to bf16 does not,
+    which is why the kernel splits p."""
+    _, (q, k, v) = _inputs(1, 4096, 1, 64, "bfloat16", 5)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    A = tfa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                  causal=causal)
+    tol = _bf16_ulp(want) + 2e-5 * A
+    split = tfa.pv_split_emulation(q, k, v, causal=causal)
+    once = tfa.pv_split_emulation(q, k, v, causal=causal, split=False)
+    assert split.dtype == once.dtype == torch.bfloat16
+    assert ((split.float() - want.float()).abs() <= tol).all()
+    assert ((once.float() - want.float()).abs() > tol).any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_pv_split_error_before_rounding(causal):
+    """The same arithmetic before the output's rounding, in f32 on bf16
+    values: the split is off the exact p·v by far less than 2e-5·A, one
+    rounding of p by more."""
+    _, (q, k, v) = _inputs(1, 4096, 1, 64, "bfloat16", 6)
+    q, k, v = q.float(), k.float(), v.float()
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    A = tfa.flash_attention_plain(q, k, v.abs(), causal=causal)
+    split = tfa.pv_split_emulation(q, k, v, causal=causal)
+    once = tfa.pv_split_emulation(q, k, v, causal=causal, split=False)
+    assert ((split - want).abs() <= 2e-5 * A).all()
+    assert ((once - want).abs() > 2e-5 * A).any()
+
+
+def _refused(case):
+    z = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
+    if case == "head dim 96":
+        t = torch.zeros((1, 16, 2, 96), dtype=torch.bfloat16)
+        return (t, t, t), "head dim"
+    if case == "mixed dtypes":
+        return (z, z.float(), z), "dtypes"
+    if case == "float16":
+        return (z.half(), z.half(), z.half()), "dtypes"
+    if case == "non-contiguous":
+        t = torch.zeros((1, 2, 16, 64), dtype=torch.bfloat16).transpose(1, 2)
+        return (z, t, z), "contiguous"
+    if case == "shapes differ":
+        return (z, z[:, :8], z), "shape"
+    return (z, z, z), "CUDA"                        # CPU tensors
+
+
+@pytest.mark.parametrize("case", ["head dim 96", "mixed dtypes", "float16",
+                                  "non-contiguous", "shapes differ", "cpu"])
+def test_flash_cuda_refuses_what_the_kernels_do_not_take(monkeypatch, case):
+    """The wrapper raises before building or launching on what neither
+    kernel takes: hd outside (64, 128), mixed or other dtypes,
+    non-contiguous inputs, unequal shapes and tensors off the card."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+    monkeypatch.setattr(_build, "load", no_build)
+    args, match = _refused(case)
+    before = dict(ops.launch_counts())
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention_cuda(*args)
+    assert ops.launch_counts() == before

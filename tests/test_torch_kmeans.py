@@ -191,6 +191,33 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building(monkeypatch):
     assert ops.launch_counts() == before
 
 
+def _bad_kmeans_args(case):
+    x, c, w = torch.zeros((2, 8, 6)), torch.zeros((4, 3, 6)), torch.ones((2, 8))
+    return {"d differs": (x, c[..., :5], w), "no centroids": (x, c[:, :0], w),
+            "sets do not divide": (x, c[:3], w), "w shape": (x, c, w[:, :7]),
+            "1-D x": (x[0, 0], c[0], w[0])}[case]
+
+
+@pytest.mark.parametrize("case,reduce", [
+    (c, r) for c in ("d differs", "no centroids", "sets do not divide",
+                     "1-D x") for r in (False, True)] + [("w shape", True)])
+def test_cuda_wrappers_refuse_bad_shapes_without_building(monkeypatch, case,
+                                                          reduce):
+    """Shapes the kernels do not take raise before anything is built or
+    launched, on any device: the batch layout is checked first."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+    monkeypatch.setattr(_build, "load", no_build)
+    x, c, w = _bad_kmeans_args(case)
+    before = dict(ops.launch_counts())
+    with pytest.raises(ValueError, match="must|divide|fit"):
+        if reduce:
+            tkm.kmeans_assign_reduce_cuda(x, c, w)
+        else:
+            tkm.kmeans_assign_cuda(x, c)
+    assert ops.launch_counts() == before
+
+
 # ------------------------------------------------------------------ Lloyd
 
 
