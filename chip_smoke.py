@@ -6,10 +6,13 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc``, holds each kernel against
 its plain PyTorch version (at the serving shapes, at the shapes of the
-reference's kernel tests and at the router fit's shapes), times both and
-times each kernel in rounds interleaved with the one PyTorch call that
-computes its function (with and without host work), then drives the port's main paths, with the launch counters reset just
-before each path and read just after it:
+reference's kernel tests and at the router fit's shapes; the decode
+kernels also at their chunk edges, hd 64, every dtype pair, and paged
+against contiguous bit for bit), times both and times each kernel in
+rounds interleaved with the one PyTorch call that computes its function
+(with and without host work; the decode kernels also at the served
+shapes), then drives the port's main paths, with the launch counters
+reset just before each path and read just after it:
 
 * routed serving of qwen2-1.5b and yi-6b at full published width and
   depth, random bf16 weights from a seeded generator, through each path
@@ -155,15 +158,19 @@ def bf16_ulp(torch, x):
     return torch.exp2(torch.floor(torch.log2(ax)) - 7)
 
 
-def check_close(torch, got, want, what: str, scale=None) -> tuple:
+def check_close(torch, got, want, what: str, scale=None,
+                p_rounded: bool = True) -> tuple:
     """The stated tolerance: f32 |Δ| ≤ 1e-5 + 1e-5·|ref|; bf16 |Δ| ≤ 2 bf16
-    ulps of the plain value, plus, for decode attention, (2^-8 + 1e-5)·A
-    where ``scale`` is A = Σ p·|v| / Σ p, the attention of the same query
-    over |v|. That term bounds the kernel's one freedom against the plain
-    version: the online softmax rounds each probability to bf16 against a
-    running maximum instead of the row's final one, and two bf16 roundings
-    of p differ by at most 2^-8 of p; 1e-5 covers the f32 sums' order.
-    Returns (max |Δ|, max |Δ| / tolerance)."""
+    ulps of the plain value; plus, for decode attention where the caller
+    passes ``scale`` (every dtype pair but f32 q over an f32 cache),
+    (2^-8 + 1e-5)·A, where ``scale`` is A = Σ p·|v| / Σ p, the attention of
+    the same query over |v|. The 2^-8·A bounds the kernel's one freedom
+    against the plain version: it rounds each probability to the bf16 of
+    the V cache against its chunk's maximum instead of the row's, and two
+    bf16 roundings of p differ by at most 2^-8 of p (over an f32 cache p is
+    not rounded: ``p_rounded=False`` drops that part); 1e-5·A covers the
+    f32 sums' order, which a bf16 output of a near-cancelling sum does not
+    absorb in its 2 ulps. Returns (max |Δ|, max |Δ| / tolerance)."""
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
                              f"{want.dtype}{tuple(want.shape)}")
@@ -173,10 +180,10 @@ def check_close(torch, got, want, what: str, scale=None) -> tuple:
     d = (g - w).abs()
     if want.dtype == torch.bfloat16:
         tol = 2 * bf16_ulp(torch, w)
-        if scale is not None:
-            tol = tol + (2.0 ** -8 + 1e-5) * scale.float()
     else:
         tol = 1e-5 + 1e-5 * w.abs()
+    if scale is not None:
+        tol = tol + ((2.0 ** -8 if p_rounded else 0.0) + 1e-5) * scale.float()
     bad = d > tol
     if bad.any():
         i = int(torch.nonzero(bad.reshape(-1))[0])
@@ -310,13 +317,120 @@ def _sdpa_call(torch, F, q, k, v, nv):
     return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
 
 
+def _decode_edges(torch, da, dev, check, errs_c, errs_p) -> None:
+    """Both decode kernels at the chunk edges (n_valid C−1, C, C+1, 2C+1,
+    3C−1, 0, 1 and the capacity, one row each, C the compiled chunk size),
+    at hd 64 and 128, g 1, 6 and 8, for all four (q, cache) dtype pairs,
+    each against its plain version; and the paged kernel's output equal bit
+    for bit to the contiguous kernel's on the same logical contents, with
+    NaN in the trash page and past n_valid in a longer contiguous cache
+    (so neither is read)."""
+    from repro_torch.kernels.ref import paged_gather_ref
+    gen = torch.Generator(device=dev).manual_seed(13)
+    C = da._bound().chunk
+    B, ps, npg = 8, 16, 32
+    P, cap = B * npg + 1, ps * npg
+    nv = torch.tensor([C - 1, C, C + 1, 2 * C + 1, 3 * C - 1, 0, 1, cap],
+                      dtype=torch.int32, device=dev)
+    bf, f32 = torch.bfloat16, torch.float32
+    blk = torch.arange(npg, device=dev)[None, :] * ps
+    nan = float("nan")
+    for hd in (64, 128):
+        for Hkv, g in ((2, 6), (4, 8), (1, 1)):
+            for qd, cd in ((bf, bf), (f32, f32), (f32, bf), (bf, f32)):
+                what = f"hd={hd} Hkv={Hkv} g={g} q {qd} cache {cd} edges"
+                q = torch.randn((B, Hkv, g, hd), generator=gen,
+                                device=dev).to(qd)
+                kp, vp = (torch.randn((P, Hkv, ps, hd), generator=gen,
+                                      device=dev).to(cd) for _ in range(2))
+                pt = torch.randperm(P - 1, generator=gen, device=dev)[
+                    :B * npg].reshape(B, npg).int() + 1
+                pt = torch.where(blk < nv[:, None], pt, torch.zeros_like(pt))
+                k, v = paged_gather_ref(kp, pt), paged_gather_ref(vp, pt)
+                want = da.decode_attention_plain(q, k, v, nv)
+                scale = (da.decode_attention_plain(q.float(), k, v.abs(), nv)
+                         if bf in (qd, cd) else None)
+                got_c = da.decode_attention_cuda(q, k, v, nv)
+                got_p = da.paged_decode_attention_cuda(q, kp, vp, pt, nv)
+                torch.cuda.synchronize()
+                check(errs_c, got_c, want, scale, nv,
+                      f"decode_attention {what}", cd == bf)
+                check(errs_p, got_p, want, scale, nv,
+                      f"paged_decode_attention {what}", cd == bf)
+                # the same logical contents: NaN past n_valid in a cache
+                # longer by 3C, NaN in the trash page
+                pos = torch.arange(cap + 3 * C, device=dev)
+                past = (pos[None, :] >= nv[:, None]).reshape(B, 1, -1, 1)
+                wide = [torch.where(past, nan, torch.nn.functional.pad(
+                    t, (0, 0, 0, 3 * C)).float()).to(cd) for t in (k, v)]
+                kn, vn = kp.clone(), vp.clone()
+                kn[0], vn[0] = nan, nan
+                outs = (got_c, da.decode_attention_cuda(q, *wide, nv),
+                        da.paged_decode_attention_cuda(q, kn, vn, pt, nv))
+                torch.cuda.synchronize()
+                if not all(torch.equal(got_p, o) for o in outs):
+                    raise AssertionError(f"{what}: paged and contiguous "
+                                         "kernels differ in their bits")
+
+
+def _decode_served(torch, F, da, dev) -> dict:
+    """Both decode kernels at the served shapes, checked and timed against
+    SDPA: qwen2-1.5b (Hkv 2, g 6) and yi-6b (Hkv 4, g 8), bf16, 8 decode
+    slots at 1–46 valid positions (the served prompts of 1–14 words plus
+    the profile's 32 decode steps), 16 pages of 16 per row (the engine's
+    max_seq 256); the contiguous kernel over the same 256 positions."""
+    from repro_torch.kernels.ref import paged_gather_ref
+    gen = torch.Generator(device=dev).manual_seed(14)
+    B, hd, ps, npg = 8, 128, 16, 16
+    P = B * npg + 1
+    dt = torch.bfloat16
+    out = {}
+    for model, Hkv, g in (("qwen2-1.5b", 2, 6), ("yi-6b", 4, 8)):
+        nv = torch.randint(1, 47, (B,), generator=gen, device=dev).int()
+        q = torch.randn((B, Hkv, g, hd), generator=gen, device=dev).to(dt)
+        kp, vp = (torch.randn((P, Hkv, ps, hd), generator=gen,
+                              device=dev).to(dt) for _ in range(2))
+        pt = torch.randperm(P - 1, generator=gen, device=dev)[
+            :B * npg].reshape(B, npg).int() + 1
+        k, v = paged_gather_ref(kp, pt), paged_gather_ref(vp, pt)
+        want = da.decode_attention_plain(q, k, v, nv)
+        scale = da.decode_attention_plain(q.float(), k, v.abs(), nv)
+        sdpa = _sdpa_call(torch, F, q, k, v, nv)
+        for kind, fn in (
+                ("paged", lambda: da.paged_decode_attention_cuda(
+                    q, kp, vp, pt, nv)),
+                ("contiguous", lambda: da.decode_attention_cuda(q, k, v, nv))):
+            err = check_close(torch, fn(), want, f"{kind} decode {model} "
+                              "served shape", scale)
+            extra = 4 * pt.numel() if kind == "paged" else 0
+            b_ms, b_by = bound(*_attn_cost(q, "bfloat16", nv, Hkv, hd, extra),
+                               "bfloat16")
+            t = interleaved_ms(torch, fn, sdpa)
+            out[f"{model} {kind}"] = {
+                "err_over_tol": err[1], "n_valid": nv.tolist(),
+                "bound_ms": b_ms, "bound_by": b_by,
+                **{key: t[key] for key in ("ms", "device_ms", "library_ms",
+                                           "library_device_ms", "ratio")}}
+    return out
+
+
+def _launch_floor(torch, dev) -> dict:
+    """What a call of one and of two launches costs at least, measured as
+    ``device_ms`` measures the kernels: a one-element in-place add, once
+    and twice per call."""
+    t = torch.zeros(1, device=dev)
+    return {"one_launch_device_ms": device_ms(torch, lambda: t.add_(1)),
+            "two_launches_device_ms": device_ms(
+                torch, lambda: t.add_(1).add_(1))}
+
+
 def kernel_decode(torch, F, da, dev) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(12)
     errs_c, errs_p = [], []
     B, hd, ps, npg, P = 8, 128, 16, 16, 129
 
-    def check(errs, got, want, scale, nv, what):
-        errs.append(check_close(torch, got, want, what, scale))
+    def check(errs, got, want, scale, nv, what, p_rounded=True):
+        errs.append(check_close(torch, got, want, what, scale, p_rounded))
         if bool((nv == 0).any()) and bool((got[nv == 0] != 0).any()):
             raise AssertionError(f"{what}: n_valid=0 rows not 0")
 
@@ -333,7 +447,9 @@ def kernel_decode(torch, F, da, dev) -> tuple:
                     want = da.decode_attention_plain(q, k, v, nv)
                     scale = da.decode_attention_plain(q.float(), k, v.abs(), nv)
                     torch.cuda.synchronize()
-                    check(errs_c, got, want, scale, nv, f"decode_attention "
+                    check(errs_c, got, want,
+                          scale if dtype == torch.bfloat16 else None, nv,
+                          f"decode_attention "
                           f"Hkv={Hkv} g={g} S={S} {dtype} {name}")
             kp = torch.randn((P, Hkv, ps, hd), generator=gen, device=dev).to(dtype)
             vp = torch.randn((P, Hkv, ps, hd), generator=gen, device=dev).to(dtype)
@@ -351,8 +467,12 @@ def kernel_decode(torch, F, da, dev) -> tuple:
                 scale = da.paged_decode_attention_plain(q.float(), kp,
                                                         vp.abs(), pt, nv)
                 torch.cuda.synchronize()
-                check(errs_p, got, want, scale, nv, f"paged_decode_attention "
+                check(errs_p, got, want,
+                      scale if dtype == torch.bfloat16 else None, nv,
+                      f"paged_decode_attention "
                       f"Hkv={Hkv} g={g} {dtype} {name}")
+
+    _decode_edges(torch, da, dev, check, errs_c, errs_p)
 
     # main-path shapes: yi-6b heads (Hkv 4, g 8) in bf16, 8 decode slots,
     # ragged positions below the 256-position region
@@ -935,7 +1055,8 @@ def profile_decode(torch, srv, pool) -> None:
     busy = sum(ms for _, ms, _ in kern)
 
     def group(name):
-        if "decode_contig" in name or "decode_paged" in name:
+        if any(t in name for t in ("decode_contig", "decode_paged",
+                                   "decode_merge")):
             return "decode attention (CUDA kernels)"
         if any(t in name.lower() for t in ("gemm", "cutlass", "xmma",
                                            "nvjet", "gemv")):
@@ -1519,6 +1640,9 @@ def main() -> None:
     rows = [kernel_router(torch, ru, dev), *kernel_decode(torch, F, da, dev),
             *kernel_kmeans(torch, F, km, dev, split),
             kernel_flash(torch, F, fa, dev)]
+    emit({"phase": "decode_times", "chunk": da._bound().chunk,
+          "launch_floor": _launch_floor(torch, dev),
+          "shapes": _decode_served(torch, F, da, dev)})
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
