@@ -8,11 +8,14 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 its plain PyTorch version (at the serving shapes, at the shapes of the
 reference's kernel tests and at the router fit's shapes; the decode
 kernels also at their chunk edges, hd 64, every dtype pair, and paged
-against contiguous bit for bit), times both and times each kernel in
-rounds interleaved with the one PyTorch call that computes its function
-(with and without host work; the decode kernels also at the served
-shapes), then drives the port's main paths, with the launch counters
-reset just before each path and read just after it:
+against contiguous bit for bit; the K-means reduction also against its
+segmented emulation, at its segment and tree edges, and two launches bit
+for bit), times both and times each kernel in rounds interleaved with the
+one PyTorch call that computes its function (with and without host work;
+the decode kernels also at the served shapes; the K-means reduction
+beside the assignment alone; the router beside a one-launch floor), then
+drives the port's main paths, with the launch counters reset just before
+each path and read just after it:
 
 * routed serving of qwen2-1.5b and yi-6b at full published width and
   depth, random bf16 weights from a seeded generator, through each path
@@ -245,30 +248,35 @@ def kernel_router(torch, ru, dev) -> dict:
 
     errs = []
     # n: the main path's buckets (1 for submit, 4 for the per-call path,
-    # 16 for generate's 12 prompts) and whole and many 8-row blocks; M: the
-    # served pool, the fit's 11 models and a wide pool
-    for dh in (512, 32, 20):
+    # 16 for generate's 12 prompts) and whole and many 8-row blocks; dh:
+    # the three families' features and one that takes the scalar loads;
+    # M: one model, the served pool, the fit's 11 models, one and two
+    # groups of 16 and a wide pool (three groups, the last partial)
+    for dh in (512, 32, 20, 77):
         for n in (1, 4, 8, 16, 1024):
-            for M in (2, 11, 40):
+            for M in (1, 2, 11, 16, 17, 40):
                 t = heads(n, M, dh)
                 for lam in (0.0, 0.5, 10.0):
                     errs.append(_check_router(
                         torch, ru, (*t, lam),
                         f"router_utility dh={dh} n={n} M={M} lam={lam}"))
     # timed at generate's bucket of 16, λ = 2, checked too: M 2 at each
-    # family's features (the row below is the MLP's), and M 11 (the fit's
-    # route bucket)
+    # family's features (the MLP's is the kernels row), M 11 (the fit's
+    # route bucket) and M 40; beside the floor of a one-launch call
     times = {}
-    for dh, M in ((32, 2), (20, 2), (32, 11), (20, 11), (512, 11)):
+    for dh, M in ((32, 2), (20, 2), (32, 11), (20, 11), (512, 11),
+                  (512, 40)):
         a = (*heads(16, M, dh), 2.0)
         errs.append(_check_router(torch, ru, a, f"router_utility timed dh={dh}"
                                                 f" M={M}"))
         b_ms, by = _router_bound(16, dh, M)
         times[f"h (16, {dh}) f32, M {M}"] = {
             "ms": median_ms(torch, lambda: ru.router_utility_cuda(*a)),
+            "device_ms": device_ms(torch, lambda: ru.router_utility_cuda(*a)),
             "plain_ms": median_ms(torch, lambda: ru.router_utility_plain(*a)),
             "bound_ms": b_ms, "bound_by": by}
-    emit({"phase": "router_utility_times", "shapes": times})
+    emit({"phase": "router_utility_times",
+          "launch_floor": _launch_floor(torch, dev), "shapes": times})
     args = (*heads(16, 2), 2.0)
     errs.append(_check_router(torch, ru, args, "router_utility timed args"))
     b_ms, by = _router_bound(16, 512, 2)
@@ -547,13 +555,51 @@ def _near_ties(torch, x, c):
     return (gap < 1e-5 * scale).reshape(P, n)
 
 
-def _check_kmeans(torch, F, km, x, c, w, what: str, errs: list) -> None:
+def _one_hot_sums(torch, A, x, w, K: int) -> tuple:
+    """For the assignment A (P, n) of x (G, n, d), w (G, n): the one-hot
+    reduction's sums Σ w·x and Σ|w·x| (P, K, d) and counts Σ w (P, K)."""
+    G = x.shape[0]
+    R = A.shape[0] // G
+    oh = torch.nn.functional.one_hot(A.long(), K).float() * (
+        w.float().repeat_interleave(R, 0)[..., None])          # (P, n, K)
+    xr = x.float().repeat_interleave(R, 0)
+    return (oh.transpose(1, 2) @ xr, oh.transpose(1, 2) @ xr.abs(),
+            oh.sum(1))
+
+
+def _sums_close(torch, S, want, scale, what: str) -> tuple:
+    """|S − want| ≤ 1e-5 × Σ|w·x| of the cluster; (max |Δ|, max ratio)."""
+    ds = (S - want).abs()
+    if (ds > 1e-5 * scale).any():
+        raise AssertionError(f"{what}: sums off by {float(ds.max())!r} "
+                             "beyond 1e-5 of the cluster's sum of |w·x|")
+    if not ds.numel():
+        return 0.0, 0.0
+    return (float(ds.max()),
+            float((ds / scale.clamp(min=1e-30)).max() / 1e-5))
+
+
+def _counts_close(torch, N, cnt, w, what: str) -> None:
+    """Counts exact for 0/1 weights, else to 1e-5 relative."""
+    if bool(((w == 0) | (w == 1)).all()):
+        if not torch.equal(N, cnt):
+            raise AssertionError(f"{what}: 0/1 counts not exact")
+    elif ((N - cnt).abs() > 1e-5 * cnt).any():
+        raise AssertionError(f"{what}: counts off beyond 1e-5")
+
+
+def _check_kmeans(torch, F, km, x, c, w, what: str, errs: list,
+                  emu: list) -> None:
     """Both kernels against the plain versions on x (G, n, d), c (G·R, K,
     d), w (G, n). Assignments: equal to the plain argmin off near-ties
     (``_near_ties``), the assign and reduce kernels equal to each other.
     Sums: |Δ| ≤ 1e-5 × Σ|w·x| of the cluster, against the plain one-hot
-    reduction of the kernel's own assignment. Counts: exact for 0/1
-    weights, else to 1e-5 relative. Two reduce launches: bit-identical."""
+    reduction of the kernel's own assignment, and to the same rule against
+    the segmented emulation (the kernel's order in plain PyTorch) on that
+    assignment. Counts: exact for 0/1 weights, else to 1e-5 relative. Two
+    reduce launches: bit-identical. Appends (max |Δ|, max |Δ| / tolerance)
+    to ``errs`` and, to ``emu``, the kernel's max |Δ| from the emulation
+    and how many of its sums and counts differ from it in any bit."""
     a_k = km.kmeans_assign_cuda(x, c)
     a_p = km.kmeans_assign_plain(x, c)
     r1 = km.kmeans_assign_reduce_cuda(x, c, w)
@@ -568,27 +614,17 @@ def _check_kmeans(torch, F, km, x, c, w, what: str, errs: list) -> None:
     if neq.any():
         raise AssertionError(f"{what}: {int(neq.sum())} rows assigned "
                              "differently off near-ties")
-    G, n, d = x.shape
-    P, K, _ = c.shape
-    R = P // G
-    oh = F.one_hot(A.long(), K).float() * w.float().repeat_interleave(
-        R, 0)[..., None]                                     # (P, n, K)
-    xr = x.float().repeat_interleave(R, 0)
-    want = oh.transpose(1, 2) @ xr
-    scale = oh.transpose(1, 2) @ xr.abs()
-    ds = (S - want).abs()
-    if (ds > 1e-5 * scale).any():
-        raise AssertionError(f"{what}: sums off by {float(ds.max())!r} "
-                             "beyond 1e-5 of the cluster's sum of |w·x|")
-    cnt = oh.sum(1)
-    if bool(((w == 0) | (w == 1)).all()):
-        if not torch.equal(N, cnt):
-            raise AssertionError(f"{what}: 0/1 counts not exact")
-    elif ((N - cnt).abs() > 1e-5 * cnt).any():
-        raise AssertionError(f"{what}: counts off beyond 1e-5")
-    errs.append((float(ds.max()) if ds.numel() else 0.0,
-                 float((ds / scale.clamp(min=1e-30)).max() / 1e-5)
-                 if ds.numel() else 0.0))
+    want, scale, cnt = _one_hot_sums(torch, A, x, w, c.shape[1])
+    errs.append(_sums_close(torch, S, want, scale, what))
+    _counts_close(torch, N, cnt, w, what)
+    _, S_e, N_e = km.kmeans_reduce_segmented_emulation(x, c, w, assign=A)
+    _sums_close(torch, S, S_e, scale, f"{what}: kernel against emulation")
+    _counts_close(torch, N, N_e, w, f"{what}: kernel against emulation")
+    emu.append({
+        "shape": what,
+        "max_abs_diff": float((S - S_e).abs().max()) if S.numel() else 0.0,
+        "sums_differing": int((S != S_e).sum()), "sums": S.numel(),
+        "counts_differing": int((N != N_e).sum())})
 
 
 def _kmeans_cost(x, c, reduce: bool) -> tuple:
@@ -638,16 +674,28 @@ def _kmeans_times(torch, km, x, c, w) -> dict:
         out[name] = {**interleaved_ms(torch, kern, lib),
                      "plain_ms": median_ms(torch, plain, reps=20),
                      "bound_ms": b_ms, "bound_by": b_by}
+    # the reduction's share of #5, read beside it: the assignment alone,
+    # timed again next to #5 in the same way
+    red = out["kmeans_assign_reduce"]
+    red["assign_device_ms"] = device_ms(
+        torch, lambda: km.kmeans_assign_cuda(x, c))
+    red["reduce_device_ms"] = device_ms(
+        torch, lambda: km.kmeans_assign_reduce_cuda(x, c, w))
+    red["reduction_part_device_ms"] = (red["reduce_device_ms"]
+                                       - red["assign_device_ms"])
     return out
 
 
 def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
-    """Kernels #4 and #5 against their plain versions on every shape of
-    tests/test_kernels.py, n = 1, ragged row counts and the fit path's own
-    shapes (from the fit phase's data); times at the fit path's shapes."""
+    """Kernels #4 and #5 against their plain versions (and #5 against its
+    segmented emulation) on every shape of tests/test_kernels.py, n = 1,
+    ragged row counts, the reduction's segment and tree edges and the fit
+    path's own shapes (from the fit phase's data); times at the fit path's
+    shapes."""
     from repro_torch.core.kmeans import _plusplus_init
     gen = torch.Generator(device=dev).manual_seed(13)
     f32, bf16 = torch.float32, torch.bfloat16
+    S = km.REDUCE_SEG
 
     def rnd(*shape, dtype=f32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -655,62 +703,105 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
     def unif(*shape):
         return torch.rand(shape, generator=gen, device=dev)
 
-    errs = []
+    errs, emu = [], []
+
+    def check(x, c, w, what):
+        _check_kmeans(torch, F, km, x, c, w, what, errs, emu)
+
     for n, d, K in ((64, 8, 3), (513, 77, 13), (1000, 128, 20),
                     (256, 768, 15), (37, 33, 40)):          # test_kmeans_assign
         for dt in (f32, bf16):
-            _check_kmeans(torch, F, km, rnd(1, n, d, dtype=dt),
-                          rnd(1, K, d, dtype=dt), unif(1, n),
-                          f"kmeans n={n} d={d} K={K} {dt}", errs)
+            check(rnd(1, n, d, dtype=dt), rnd(1, K, d, dtype=dt), unif(1, n),
+                  f"kmeans n={n} d={d} K={K} {dt}")
     for n, d, K in ((65, 1000, 7), (33, 1536, 5), (257, 999, 13),
                     (65, 300, 7), (100, 4096, 40), (70, 900, 9),
                     (200, 24, 1000), (300, 24, 2000), (256, 128, 20),
                     (100, 40, 130), (1, 768, 20), (129, 768, 15)):
-        _check_kmeans(torch, F, km, rnd(1, n, d), rnd(1, K, d), unif(1, n),
-                      f"kmeans n={n} d={d} K={K}", errs)
+        check(rnd(1, n, d), rnd(1, K, d), unif(1, n),
+              f"kmeans n={n} d={d} K={K}")
     # K 1, and R·K past one 64-centroid group of the assignment kernel
     # (a problem straddles the groups), with d a multiple of 4 and not
     for G, n, d, R, K in ((1, 97, 768, 1, 1), (2, 50, 24, 3, 1),
                           (2, 301, 100, 3, 30), (2, 301, 101, 3, 30),
                           (1, 77, 64, 1, 65)):
         for dt in (f32, bf16):
-            _check_kmeans(torch, F, km, rnd(G, n, d, dtype=dt),
-                          rnd(G * R, K, d, dtype=dt), unif(G, n),
-                          f"kmeans G={G} n={n} d={d} R={R} K={K} {dt}", errs)
+            check(rnd(G, n, d, dtype=dt), rnd(G * R, K, d, dtype=dt),
+                  unif(G, n), f"kmeans G={G} n={n} d={d} R={R} K={K} {dt}")
     x = rnd(1, 513, 77)                                      # 0/1 weights
-    _check_kmeans(torch, F, km, x, rnd(1, 13, 77), (unif(1, 513) > 0.3).float(),
-                  "kmeans 0/1 weights", errs)
+    check(x, rnd(1, 13, 77), (unif(1, 513) > 0.3).float(),
+          "kmeans 0/1 weights")
     x = rnd(1, 37, 9)                                        # zero-weight pad
     w = (torch.arange(37, device=dev) < 30).float()[None]
-    _check_kmeans(torch, F, km, x, x[:, :5].clone(), w, "kmeans padding", errs)
+    check(x, x[:, :5].clone(), w, "kmeans padding")
     a2 = km.kmeans_assign_reduce_cuda(x[0], x[0, :5].clone(), w[0])
     a3 = km.kmeans_assign_reduce_cuda(x, x[:, :5].clone(), w)
     if not all(torch.equal(u, v[0]) for u, v in zip(a2, a3)):
         raise AssertionError("kmeans: 2-D and batched calls differ")
 
+    # the reduction's edges: n at a segment's edges and one past two
+    # segments, f32 rows with and without 16-byte loads and bf16 rows,
+    # 2 slabs × 3 restarts; one tree stage past 8 segments, two past 64
+    for n in (S - 1, S, S + 1, 2 * S + 1, 1):
+        for d, dt in ((768, f32), (77, f32), (64, bf16)):
+            check(rnd(2, n, d, dtype=dt), rnd(6, 15, d, dtype=dt),
+                  unif(2, n), f"kmeans edge n={n} d={d} {dt} G=2 R=3 K=15")
+    for n in (8 * S + 1, 64 * S + 1):
+        check(rnd(1, n, 20), rnd(3, 7, 20), unif(1, n),
+              f"kmeans edge n={n} d=20 R=3 K=7")
+    x = rnd(2, 2 * S + 1, 40)
+    far = rnd(6, 15, 40) * 100.0
+    one = far.clone()
+    one[:, 0] = 0.0                        # centroid 0 takes every row
+    check(x, one, unif(2, 2 * S + 1), "kmeans one cluster takes every row")
+    half = rnd(6, 15, 40)
+    half[:, 8:] *= 100.0                   # centroids 8.. far: empty
+    check(x, half, (unif(2, 2 * S + 1) > 0.5).float(),
+          "kmeans empty clusters, 0/1 weights")
+    check(x, half, torch.zeros((2, 2 * S + 1), device=dev),
+          "kmeans all weights zero")
+    check(x, rnd(6, 30, 40), (unif(2, 2 * S + 1) > 0.3).float(),
+          "kmeans R·K = 90, 0/1 weights")
+    check(rnd(1, S + 1, 24), rnd(1, 300, 24), unif(1, S + 1),
+          "kmeans K 300 > rows")
+    for d in (768, 77):                    # n = 0 writes zeros
+        _, s0, c0 = km.kmeans_assign_reduce_cuda(
+            rnd(2, 0, d), rnd(6, 15, d), unif(2, 0))
+        torch.cuda.synchronize()
+        if s0.shape != (6, 15, d) or s0.abs().sum() or c0.abs().sum():
+            raise AssertionError(f"kmeans n=0 d={d}: not zeros")
+
     # the fit path's shapes: a local Lloyd step (10 clients × 3 restarts),
-    # the server step (150 uploads, K 20, 3 restarts), the statistics over
-    # every client's rows (38,970), predict on the global test set, a
-    # route bucket of 16 and routing's 12 prompts
+    # one client's local fit (3 restarts), the server step (150 uploads, K
+    # 20, 3 restarts), the statistics over every client's rows (38,970),
+    # predict on the global test set, a route bucket of 16 and routing's
+    # 12 prompts
     tr, tg = data["train"], data["test_global"]
     xl, wl = tr["x"], (tr["w"] > 0).float()
     N, D_max, d = xl.shape
     cl = _plusplus_init(gen, xl, wl, 15, 3).reshape(N * 3, 15, d)
-    _check_kmeans(torch, F, km, xl, cl, wl, "kmeans local Lloyd step", errs)
+    check(xl, cl, wl, "kmeans local Lloyd step")
+    x1, c1, w1 = xl[:1], cl[:3].contiguous(), wl[:1]
+    check(x1, c1, w1, "kmeans local fit, one client")
     xs = cl[::3].reshape(1, N * 15, d).contiguous()
     ws = torch.randint(0, 400, (1, N * 15), generator=gen, device=dev).float()
     cs = _plusplus_init(gen, xs, ws, 20, 3).reshape(3, 20, d)
-    _check_kmeans(torch, F, km, xs, cs, ws, "kmeans server step", errs)
+    check(xs, cs, ws, "kmeans server step")
     xq = tg["x"][None]
     cq = cs[:1].contiguous()
-    _check_kmeans(torch, F, km, xq, cq, torch.ones(xq.shape[:2], device=dev),
-                  "kmeans predict", errs)
-    _check_kmeans(torch, F, km, xq[:, :16].contiguous(), cq,
-                  torch.ones((1, 16), device=dev), "kmeans route bucket", errs)
-    _check_kmeans(torch, F, km, xq[:, :12].contiguous(), cq,
-                  torch.ones((1, 12), device=dev), "kmeans routing", errs)
+    check(xq, cq, torch.ones(xq.shape[:2], device=dev), "kmeans predict")
+    check(xq[:, :16].contiguous(), cq, torch.ones((1, 16), device=dev),
+          "kmeans route bucket")
+    check(xq[:, :12].contiguous(), cq, torch.ones((1, 12), device=dev),
+          "kmeans routing")
     xt, wt = xl.reshape(1, N * D_max, d), wl.reshape(1, N * D_max)
-    _check_kmeans(torch, F, km, xt, cq, wt, "kmeans statistics", errs)
+    check(xt, cq, wt, "kmeans statistics")
+    emit({"phase": "kmeans_emulation", "shapes": len(emu),
+          "max_abs_diff": max(e["max_abs_diff"] for e in emu),
+          "sums_differing": sum(e["sums_differing"] for e in emu),
+          "sums": sum(e["sums"] for e in emu),
+          "counts_differing": sum(e["counts_differing"] for e in emu),
+          "shapes_differing": [e for e in emu if e["sums_differing"]
+                               or e["counts_differing"]][:8]})
 
     t_local = _kmeans_times(torch, km, xl, cl, wl)
     t_pred = _kmeans_times(torch, km, xq, cq, torch.ones(xq.shape[:2],
@@ -721,6 +812,8 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
               _kmeans_times(torch, km, xq[:, :16].contiguous(), cq,
                             torch.ones((1, 16), device=dev)),
               f"local Lloyd step (10, {D_max}, 768), K 15, R 3": t_local,
+              f"local fit (1, {D_max}, 768), K 15, R 3":
+              _kmeans_times(torch, km, x1, c1, w1),
               f"statistics (1, {N * D_max}, 768), K 20":
               _kmeans_times(torch, km, xt, cq, wt),
               f"predict (1, {xq.shape[1]}, 768), K 20": t_pred}
@@ -1530,11 +1623,22 @@ def features_phase(torch, dev, corpus, split, fitted: dict) -> list:
     return rows
 
 
+def _union_us(spans) -> float:
+    """Length of the union of (start, end, ...) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b, *_ in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def profile_fit(torch, dev, split) -> None:
     """Where a fit's time goes at full width: one FedAvg round (6 active
     clients, ⌈D_max/128⌉ local steps) and one federated K-means fit, each
     timed bare and then traced with torch.profiler. Reports the device's
-    busy time by kernel and its idle share of the bare wall time."""
+    busy time (the union of the kernels' spans) by kernel and its idle
+    share of the bare wall time, and the Lloyd kernels' groups."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.config import FedConfig, RouterConfig
@@ -1561,8 +1665,22 @@ def profile_fit(torch, dev, split) -> None:
             _, traced = timed(torch, fn)
         kern = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages() if e.device_type == cuda]
-        busy = sum(ms for _, ms, _ in kern)
-        emit({"phase": "profile_fit", "work": name,
+        spans = [(e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == cuda]
+        # kernels that start early (the reduction waits inside the
+        # assignment's last wave) overlap: busy time is the union of the
+        # kernels' spans, and a group's exclusive time is what the union
+        # loses without it
+        busy = _union_us(spans) / 1e3
+        groups = {g: {"ms": sum(ms for k, ms, _ in kern if tag in k),
+                      "launches": sum(c for k, _, c in kern if tag in k),
+                      "exclusive_ms": busy - _union_us(
+                          [sp for sp in spans if tag not in sp[2]]) / 1e3}
+                  for g, tag in (("kmeans_assignment", "assign_kernel"),
+                                 ("kmeans_reduction",
+                                  "segment_reduce_kernel"))}
+        emit({"phase": "profile_fit", "work": name, "groups": groups,
+              "device_kernel_ms": sum(ms for _, ms, _ in kern),
               "local_steps": steps if name == "fedavg_round" else None,
               "wall_ms_bare": bare * 1e3, "wall_ms_traced": traced * 1e3,
               "device_busy_ms": busy,

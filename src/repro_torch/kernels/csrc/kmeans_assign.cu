@@ -50,14 +50,45 @@
 // products and stored after them. No input is padded and every K >= 1,
 // d >= 1, G and R is taken.
 //
-// The reduction is deterministic: one block per (problem, cluster,
-// 128-feature chunk) scans the assignments in row order, compacts the rows
-// of its cluster (in order) into shared memory, and adds w_i * x_i for
-// them one row after another, each thread owning one feature. The order of
-// every sum is fixed by the row order alone, so a Lloyd run gives the same
-// centroids bit for bit from run to run (no atomics). Rows with w = 0 add
-// nothing. It is a second launch after the assignment; fusing the two is
-// later work.
+// Reduction design (one Lloyd step's sums and counts, a second launch).
+// Each problem's rows are cut into segments of kSeg = 256 rows, a constant
+// of this source (never derived from the card), and one block of 256
+// threads takes one (segment, problem): the grid is (segments x R, G) with
+// the restart r fastest, so the R restarts' blocks of one data segment run
+// side by side and read its rows from L2 (10 slabs x 16 segments x 3
+// restarts = 480 blocks at a local Lloyd step, 153 at the statistics over
+// 38,970 rows). A block reads its segment's assignments and weights once;
+// rows with w = 0 are dropped. Each thread owns four features (a float4
+// load when d % 4 == 0 and x is 16-byte aligned; bf16 as 8 bytes when
+// 8-byte aligned; scalars otherwise) and walks the rows in row order,
+// eight row loads in flight, adding w * x with fmaf into its own column of
+// per-cluster f32 sums in shared memory. That is the order a stable sort
+// of the rows by cluster followed by a walk of each cluster's rows would
+// give (each sum takes its cluster's rows in row order, from 0), without
+// the sort: an O(kSeg^2) rank per block was measured to cost more than
+// the sums. Each cluster's count is its weights added in row order. A
+// partial row is written for every cluster (0 if absent) into a workspace
+// (level 0: problem, segment, cluster, feature). The partials are combined
+// in segment order by a fixed tree: groups of kFanIn = 16 consecutive
+// partials are added in order from 0 by the last block of the group to
+// finish (__threadfence, then a per-group counter; no atomic sums), which
+// writes the next level's partial, until one group is left, whose last
+// block writes sums and counts (one stage at a local Lloyd step, two at
+// the statistics). A counter is set back to 0 by the block that finds
+// itself last, so the counters, zeroed once when first allocated, need no
+// clearing per call. The order of every sum depends only on the row
+// order, kSeg and kFanIn, so two launches on the same inputs give the
+// same bits. The reduction is launched early (programmatic dependent
+// launch): its blocks load their weights while the assignment runs, then
+// wait for it (griddepcontrol.wait). A tree stage is bound by what one SM
+// reads from L2 (about 1 MB at the statistics shape).
+//
+// Why the reduction is not fused into the assignment, as the TPU kernel
+// fuses it: an assignment block owns 32 rows, so a fused kernel would
+// write one partial per (row tile, problem, cluster), 168 MB at the Lloyd
+// shape, more than the 120 MB of x it saves re-reading; and the R*K x d
+// partials do not fit in shared memory beside the assignment's staging
+// ring once d or R*K grows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,7 +103,13 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kFeat = kChunk / kWarps;   // features of a chunk per warp
 constexpr int kStride = kChunk + 4;      // smem row stride, float4 aligned
 constexpr int kBufs = 3;          // chunk buffers: two chunks in flight
-constexpr int kRedThreads = 128;  // reduce block: features per chunk
+constexpr int kSeg = 256;         // reduce: rows per segment
+constexpr int kRedThreads = kSeg; // reduce block: a row each, 4 features
+constexpr int kFanIn = 16;        // reduce: partials added per tree group
+constexpr int kRun = 8;           // reduce: row loads in flight per thread
+constexpr int kAccBytes = 64 << 10;  // reduce: per-cluster sums in smem
+constexpr int kMaxLevels = 12;    // reduce: tree levels (kSeg * 16^10 rows)
+constexpr int kDrop = 0x7fffffff; // reduce: the cluster of a row w = 0
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -223,6 +260,8 @@ template <typename T, int CG, bool ASYNC>
 __global__ void __launch_bounds__(kThreads, ASYNC ? (CG <= 32 ? 3 : 2) : 1)
     assign_kernel(const T* __restrict__ x, const T* __restrict__ cents, int n,
                   int K, int d, int R, int* __restrict__ assign) {
+  // lets a dependent launch (the reduction) start; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;");
   using L = Smem<CG>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -334,47 +373,238 @@ __global__ void __launch_bounds__(kThreads, ASYNC ? (CG <= 32 ? 3 : 2) : 1)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kRedThreads)
-    reduce_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                  const int* __restrict__ assign, int n, int K, int d, int R,
-                  float* __restrict__ sums, float* __restrict__ counts) {
-  __shared__ int rows[kRedThreads];
-  __shared__ int warp_hits[kRedThreads / 32];
-  const int k = blockIdx.x;
-  const int col = blockIdx.y * kRedThreads + threadIdx.x;
-  const int p = blockIdx.z;
-  const T* xp = x + (size_t)(p / R) * n * d;
-  const float* wp = w + (size_t)(p / R) * n;
-  const int* ap = assign + (size_t)p * n;
-  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+// The tree of partials of one reduction call, the same for every problem:
+// level l holds n[l] partials per problem (n[0] = the segments); stage l
+// adds groups of kFanIn consecutive level-l partials into level l + 1, and
+// the last stage (level stages has one partial) writes the outputs; with
+// one segment there is no stage and its partial is the output (0 + a = a
+// bit for bit: no partial is -0). Offsets are in 4-byte words of the
+// workspace; ctr[l] is the first counter of stage l's groups. kc
+// clusters' sums fit in shared memory at once.
+struct Tree {
+  int stages, kc;
+  int n[kMaxLevels];
+  long long sums[kMaxLevels], cnts[kMaxLevels];
+  long long ctr[kMaxLevels];
+};
 
-  float acc = 0.f, cnt = 0.f;
-  for (int base = 0; base < n; base += kRedThreads) {
-    const int i = base + t;
-    const bool hit = i < n && ap[i] == k && wp[i] != 0.f;
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[wid] = __popc(mask);
-    __syncthreads();
-    int off = 0, total = 0;
-#pragma unroll
-    for (int q = 0; q < kRedThreads / 32; ++q) {
-      off += q < wid ? warp_hits[q] : 0;
-      total += warp_hits[q];
-    }
-    if (hit) rows[off + __popc(mask & ((1u << lane) - 1u))] = i;
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < total; ++j) {   // the cluster's rows, in row order
-      const int r = rows[j];
-      const float wr = wp[r];
-      if (col < d) acc = fmaf(wr, to_f32(xp[(size_t)r * d + col]), acc);
-      cnt += wr;
-    }
-    __syncthreads();
+// the 4-feature columns a block holds at once, one a thread
+__host__ __device__ constexpr int pass_quads(int d) {
+  return d < 4 * kRedThreads ? (d + 3) / 4 : kRedThreads;
+}
+
+Tree plan_tree(int P, int n, int K, int d, long long* words,
+               long long* counters) {
+  Tree tr{};
+  tr.kc = min(K, max(1, kAccBytes / (16 * pass_quads(d))));
+  tr.n[0] = n > kSeg ? (n + kSeg - 1) / kSeg : 1;
+  int L = 0;
+  for (; tr.n[L] > 1; ++L) tr.n[L + 1] = (tr.n[L] + kFanIn - 1) / kFanIn;
+  tr.stages = L;
+  long long off = 0, c = 0;
+  for (int l = 0; l < L; ++l) {
+    tr.sums[l] = off;   // a multiple of 4 words: 16-byte aligned rows
+    off += (long long)P * tr.n[l] * K * d;
+    tr.cnts[l] = off;
+    off = (off + (long long)P * tr.n[l] * K + 3) / 4 * 4;
+    tr.ctr[l] = c;
+    c += (long long)P * tr.n[l + 1];
   }
-  if (col < d) sums[((size_t)p * K + k) * d + col] = acc;
-  if (blockIdx.y == 0 && t == 0) counts[(size_t)p * K + k] = cnt;
+  *words = off;
+  *counters = c;
+  return tr;
+}
+
+// Features f .. f + 3 of a row, upcast; past d (left < 4) they read 0.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* p, int left) {
+  if constexpr (VEC) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return make_float4(p[0], left > 1 ? p[1] : 0.f, left > 2 ? p[2] : 0.f,
+                       left > 3 ? p[3] : 0.f);
+  }
+}
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int left) {
+  if constexpr (VEC) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    return make_float4(to_f32(p[0]), left > 1 ? to_f32(p[1]) : 0.f,
+                       left > 2 ? to_f32(p[2]) : 0.f,
+                       left > 3 ? to_f32(p[3]) : 0.f);
+  }
+}
+// the same from a partial written by another block (read through L2)
+template <bool VEC>
+__device__ __forceinline__ float4 load4_cg(const float* p, int left) {
+  if constexpr (VEC) {
+    return __ldcg(reinterpret_cast<const float4*>(p));
+  } else {
+    return make_float4(__ldcg(p), left > 1 ? __ldcg(p + 1) : 0.f,
+                       left > 2 ? __ldcg(p + 2) : 0.f,
+                       left > 3 ? __ldcg(p + 3) : 0.f);
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* p, float4 v, int left) {
+  if constexpr (VEC) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x;
+    if (left > 1) p[1] = v.y;
+    if (left > 2) p[2] = v.z;
+    if (left > 3) p[3] = v.w;
+  }
+}
+__device__ __forceinline__ float4 fma4(float w, float4 x, float4 a) {
+  return make_float4(fmaf(w, x.x, a.x), fmaf(w, x.y, a.y), fmaf(w, x.z, a.z),
+                     fmaf(w, x.w, a.w));
+}
+
+// One tree group: nm consecutive partials (src, srcc: the first one's sums
+// and counts) added in order from 0 into dsum (K, d) and dcnt (K,). The
+// block's threads take the (cluster, 4-feature column) pairs in turn, each
+// with the loads of all kFanIn partials in flight at once (a partial past
+// nm re-reads the last and is not added).
+template <bool VEC>
+__device__ void combine(const float* src, const float* srcc, int nm, int K,
+                        int d, float* dsum, float* dcnt) {
+  const int nq = (d + 3) / 4;
+  const size_t kd = (size_t)K * d;
+  for (int e = threadIdx.x; e < K * nq; e += kRedThreads) {
+    const int k = e / nq, f = 4 * (e % nq), left = d - f;
+    float4 v[kFanIn];
+#pragma unroll
+    for (int m = 0; m < kFanIn; ++m)
+      v[m] = load4_cg<VEC>(src + min(m, nm - 1) * kd + (size_t)k * d + f,
+                           left);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int m = 0; m < kFanIn; ++m) {
+      if (m < nm) {
+        a.x += v[m].x;
+        a.y += v[m].y;
+        a.z += v[m].z;
+        a.w += v[m].w;
+      }
+    }
+    store4<VEC>(dsum + (size_t)k * d + f, a, left);
+  }
+  for (int k = threadIdx.x; k < K; k += kRedThreads) {
+    float c = 0.f;
+    for (int m = 0; m < nm; ++m) c += __ldcg(srcc + (size_t)m * K + k);
+    dcnt[k] = c;
+  }
+}
+
+// One block per (segment s, problem p = g * R + r), blockIdx.x = s * R + r;
+// thread t owns features f = 4t .. 4t + 3 (and f + 4 * kRedThreads, ... when
+// d > 1024). VEC: d % 4 == 0 and x, the workspace and sums aligned for
+// 4-feature loads and stores. Dynamic shared memory: tr.kc x pass_quads(d)
+// float4, thread t's running sums of its features for each cluster of the
+// chunk (no thread reads another's).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kRedThreads)
+    segment_reduce_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                          const int* __restrict__ assign, int n, int K, int d,
+                          int R, Tree tr, float* ws, int* ctr,
+                          float* __restrict__ sums,
+                          float* __restrict__ counts) {
+  extern __shared__ float4 acc[];   // [tr.kc][pass_quads(d)]
+  __shared__ int key[kSeg];         // the row's cluster; kDrop: no weight
+  __shared__ float sw[kSeg];
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const int r = blockIdx.x % R, s = blockIdx.x / R, g = blockIdx.y;
+  const int p = g * R + r;
+  const int row0 = s * kSeg, nr = min(kSeg, n - row0);
+  // thread t's row; its weight does not depend on the assignment, so it is
+  // loaded before the wait for the assignment grid
+  const float wi = t < nr ? w[(size_t)g * n + row0 + t] : 0.f;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  key[t] = t < nr && wi != 0.f ? assign[(size_t)p * n + row0 + t] : kDrop;
+  sw[t] = wi;
+  __syncthreads();
+
+  // this block's partial: level 0 of the tree, or the outputs
+  const size_t pre0 = ((size_t)p * tr.n[0] + s) * K;
+  float* part = tr.stages ? ws + tr.sums[0] + pre0 * d : sums + pre0 * d;
+  float* pcnt = tr.stages ? ws + tr.cnts[0] + pre0 : counts + pre0;
+  // each cluster's count: its weights added in row order (0 if absent)
+  for (int k = t; k < K; k += kRedThreads) {
+    float c = 0.f;
+    for (int j = 0; j < kSeg; ++j)
+      if (key[j] == k) c += sw[j];
+    pcnt[k] = c;
+  }
+  // each cluster's sums: the rows walked in row order, each added with
+  // fmaf to its cluster's running sum, so that each sum takes its rows in
+  // row order from 0; kRun row loads in flight; chunks of tr.kc clusters
+  // (every cluster when K * d is small enough), a pass for each 1,024
+  // features; every cluster's partial is written (0 if absent)
+  const T* xs = x + ((size_t)g * n + row0) * d;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int nq = pass_quads(d);
+  for (int f = 4 * t; f < d; f += 4 * kRedThreads) {
+    const int left = d - f;
+    for (int k0 = 0; k0 < K; k0 += tr.kc) {
+      const int kc = min(tr.kc, K - k0);
+      for (int i = 0; i < kc; ++i) acc[i * nq + t] = zero;
+      for (int j0 = 0; j0 < kSeg; j0 += kRun) {
+        float4 v[kRun];
+#pragma unroll
+        for (int u = 0; u < kRun; ++u) {
+          const unsigned i = key[j0 + u] - k0;   // the chunk's cluster
+          v[u] = i < (unsigned)kc
+                     ? load4<VEC>(xs + (size_t)(j0 + u) * d + f, left)
+                     : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < kRun; ++u) {
+          const unsigned i = key[j0 + u] - k0;
+          if (i < (unsigned)kc) {
+            float4* a = acc + i * nq + t;
+            *a = fma4(sw[j0 + u], v[u], *a);
+          }
+        }
+      }
+      for (int i = 0; i < kc; ++i)
+        store4<VEC>(part + (size_t)(k0 + i) * d + f, acc[i * nq + t], left);
+    }
+  }
+
+  // the tree: the last block of each group to finish adds the group
+  int idx = s;
+  for (int l = 0; l < tr.stages; ++l) {
+    const int nl = tr.n[l], grp = idx / kFanIn, m0 = grp * kFanIn;
+    const int nm = min(kFanIn, nl - m0);
+    __threadfence();   // this block's partial is visible to every block
+    __syncthreads();
+    if (t == 0) {
+      int* cp = ctr + tr.ctr[l] + (size_t)p * tr.n[l + 1] + grp;
+      const bool last = atomicAdd(cp, 1) == nm - 1;
+      if (last) atomicExch(cp, 0);   // ready for the next call
+      s_last = last;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();   // the group's partials are visible to this block
+    const bool out = l + 1 == tr.stages;
+    const size_t dst = (size_t)p * tr.n[l + 1] + grp;   // = p when out
+    const size_t src = (size_t)p * nl + m0;
+    combine<VEC>(ws + tr.sums[l] + src * K * d, ws + tr.cnts[l] + src * K,
+                 nm, K, d,
+                 out ? sums + dst * K * d : ws + tr.sums[l + 1] + dst * K * d,
+                 out ? counts + dst * K : ws + tr.cnts[l + 1] + dst * K);
+    idx = grp;
+  }
 }
 
 template <typename T, int CG, bool ASYNC>
@@ -426,15 +656,59 @@ int launch_assign(const void* x, const void* cents, int P, int R, int n,
   return launch_assign_async<T, false>(x, cents, G, R, n, K, d, assign, s);
 }
 
+template <typename T, bool VEC>
+int launch_reduce_vec(const void* x, const void* w, const void* assign, int P,
+                      int R, int n, int K, int d, void* sums, void* counts,
+                      void* ws, void* ctr, bool early, cudaStream_t s) {
+  long long words = 0, nctr = 0;
+  const Tree tr = plan_tree(P, n, K, d, &words, &nctr);
+  auto kernel = segment_reduce_kernel<T, VEC>;
+  const size_t bytes = (size_t)tr.kc * pass_quads(d) * sizeof(float4);
+  // above 48 KB a block's dynamic shared memory must be allowed explicitly,
+  // once per kernel and device
+  static unsigned long long allowed = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(allowed >> dev & 1ull)) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAccBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    allowed |= 1ull << dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tr.n[0] * R, P / R);
+  cfg.blockDim = dim3(kRedThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = early ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const int*>(assign), n, K, d, R, tr,
+      static_cast<float*>(ws), static_cast<int*>(ctr),
+      static_cast<float*>(sums), static_cast<float*>(counts));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// early: start while the assignment launched just before runs
+// (programmatic dependent launch); the kernel waits for it before it reads
+// the assignments
 template <typename T>
-void launch_reduce(const void* x, const void* w, const void* assign, int P,
-                   int R, int n, int K, int d, void* sums, void* counts,
-                   cudaStream_t s) {
-  const dim3 grid(K, (d + kRedThreads - 1) / kRedThreads, P);
-  reduce_kernel<T><<<grid, kRedThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const int*>(assign), n, K, d, R, static_cast<float*>(sums),
-      static_cast<float*>(counts));
+int launch_reduce(const void* x, const void* w, const void* assign, int P,
+                  int R, int n, int K, int d, void* sums, void* counts,
+                  void* ws, void* ctr, bool early, cudaStream_t s) {
+  const uintptr_t al = sizeof(T) == 4 ? 16 : 8;
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % al == 0 &&
+                   reinterpret_cast<uintptr_t>(ws) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(sums) % 16 == 0;
+  return vec ? launch_reduce_vec<T, true>(x, w, assign, P, R, n, K, d, sums,
+                                          counts, ws, ctr, early, s)
+             : launch_reduce_vec<T, false>(x, w, assign, P, R, n, K, d, sums,
+                                           counts, ws, ctr, early, s);
 }
 
 }  // namespace
@@ -458,12 +732,25 @@ int kmeans_assign(int dtype, const void* x, const void* cents, int P, int R,
   return launch_assign<float>(x, cents, P, R, n, K, d, assign, s);
 }
 
-// As kmeans_assign, plus w (P/R, n) f32 and the outputs sums (P, K, d) and
-// counts (P, K), both f32 and written in full (n = 0 writes zeros).
+// The reduction's scratch for a call of kmeans_assign_reduce: out[0] 4-byte
+// words of workspace (uninitialised; f32 partials and int32 row counts),
+// out[1] int32 counters, which must be zero before the first call and
+// are left zero by every call, out[2] the segment size kSeg and out[3] the
+// tree's fan-in kFanIn.
+int kmeans_reduce_plan(int P, int n, int K, int d, long long* out) {
+  plan_tree(P, n, K, d, &out[0], &out[1]);
+  out[2] = kSeg;
+  out[3] = kFanIn;
+  return 0;
+}
+
+// As kmeans_assign, plus w (P/R, n) f32, the outputs sums (P, K, d) and
+// counts (P, K), both f32 and written in full (n = 0 writes zeros), and
+// the scratch that kmeans_reduce_plan sizes: ws and ctr.
 int kmeans_assign_reduce(int dtype, const void* x, const void* cents,
                          const void* w, int P, int R, int n, int K, int d,
-                         void* assign, void* sums, void* counts,
-                         void* stream) {
+                         void* assign, void* sums, void* counts, void* ws,
+                         void* ctr, void* stream) {
   if (P <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = 0;
@@ -472,12 +759,11 @@ int kmeans_assign_reduce(int dtype, const void* x, const void* cents,
               ? launch_assign<__nv_bfloat16>(x, cents, P, R, n, K, d, assign, s)
               : launch_assign<float>(x, cents, P, R, n, K, d, assign, s);
   if (err != 0) return err;
-  if (dtype == 1)
-    launch_reduce<__nv_bfloat16>(x, w, assign, P, R, n, K, d, sums, counts,
-                                 s);
-  else
-    launch_reduce<float>(x, w, assign, P, R, n, K, d, sums, counts, s);
-  return static_cast<int>(cudaGetLastError());
+  return dtype == 1
+             ? launch_reduce<__nv_bfloat16>(x, w, assign, P, R, n, K, d, sums,
+                                            counts, ws, ctr, n > 0, s)
+             : launch_reduce<float>(x, w, assign, P, R, n, K, d, sums, counts,
+                                    ws, ctr, n > 0, s);
 }
 
 }  // extern "C"

@@ -10,10 +10,13 @@ restarts of one client's Lloyd run share one copy of its data. The 2-D
 reference signature x (n, d), cents (K, d), w (n,) is the batch of one and
 returns unbatched results. The reduction is deterministic on the card
 (see the kernel's source): the same inputs give the same sums bit for bit.
+``kmeans_reduce_segmented_emulation`` is its summation order in plain
+PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +25,11 @@ from repro_torch.kernels import _build
 
 #: launches of the CUDA kernels since the last reset (``ops.reset_launch_counts``)
 COUNTS = {"kmeans_assign": 0, "kmeans_assign_reduce": 0}
+
+#: the reduction's rows per segment and partials per tree group, constants
+#: of ``csrc/kmeans_assign.cu`` (checked against the library when bound)
+REDUCE_SEG = 256
+REDUCE_FAN_IN = 16
 
 
 def _batched(x, cents, w=None):
@@ -78,6 +86,63 @@ def kmeans_assign_reduce_plain(x, cents, w):
     return (a[0], sums[0], cnts[0]) if flat else (a, sums, cnts)
 
 
+def _fma(a, b, c):
+    """f32 a·b + c with one rounding, as ``fmaf``: the f32 product is exact
+    in f64 (and so, but for rare double roundings, is the result)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def kmeans_reduce_segmented_emulation(x, cents, w, *, seg: int = REDUCE_SEG,
+                                      fan_in: int = REDUCE_FAN_IN,
+                                      assign=None):
+    """The reduction kernel's summation order in plain PyTorch (for tests):
+    each problem's rows in segments of ``seg``; in each segment, each
+    cluster's w·x summed from 0 with fmaf over its rows in row order (rows
+    with w = 0 dropped; an absent cluster sums to 0) and its weights added
+    in the same order; then the segments' partials added in order from 0
+    in groups of ``fan_in`` consecutive ones, level after level, until one
+    is left. ``assign`` (the kernel's own assignment, (…, n) int32)
+    replaces the plain argmin when given. Same arguments and result as
+    ``kmeans_assign_reduce_plain``."""
+    x3, c3, w2, R, flat = _batched(x, cents, w)
+    G, n, d = x3.shape
+    P, K, _ = c3.shape
+    a = (kmeans_assign_plain(x3, c3) if assign is None
+         else assign.reshape(P, n).to(torch.int32))
+    nseg = max(1, -(-n // seg))
+    pad = nseg * seg - n
+    xs = F.pad(x3.float(), (0, 0, 0, pad)).repeat_interleave(R, 0)
+    xs = xs.reshape(P, nseg, seg, d)
+    ws = F.pad(w2.float(), (0, pad)).repeat_interleave(R, 0)
+    ws = ws.reshape(P, nseg, seg)
+    ks = F.pad(a.long(), (0, pad)).reshape(P, nseg, seg)
+    sums = x3.new_zeros((P, nseg, K, d), dtype=torch.float32)
+    cnts = x3.new_zeros((P, nseg, K), dtype=torch.float32)
+    for j in range(seg):                  # position j of every segment
+        k, wj = ks[:, :, j:j + 1], ws[:, :, j:j + 1]
+        keep = wj != 0
+        idx = k[..., None].expand(P, nseg, 1, d)
+        cur = sums.gather(2, idx)
+        new = _fma(wj[..., None], xs[:, :, j:j + 1], cur)
+        sums.scatter_(2, idx, torch.where(keep[..., None], new, cur))
+        cur = cnts.gather(2, k)
+        cnts.scatter_(2, k, torch.where(keep, cur + wj, cur))
+    while sums.shape[1] > 1:              # the tree, one level a pass
+        m = sums.shape[1]
+        g = -(-m // fan_in)
+        sums = F.pad(sums, (0, 0, 0, 0, 0, g * fan_in - m)).reshape(
+            P, g, fan_in, K, d)
+        cnts = F.pad(cnts, (0, 0, 0, g * fan_in - m)).reshape(P, g, fan_in, K)
+        s_acc = torch.zeros_like(sums[:, :, 0])
+        c_acc = torch.zeros_like(cnts[:, :, 0])
+        for i in range(fan_in):
+            s_acc = s_acc + sums[:, :, i]
+            c_acc = c_acc + cnts[:, :, i]
+        sums, cnts = s_acc, c_acc
+    sums, cnts = sums[:, 0], cnts[:, 0]
+    return (a[0], sums[0], cnts[0]) if flat else (a, sums, cnts)
+
+
 def _args(x, cents, w=None):
     x3, c3, w2, R, flat = _batched(x, cents, w)
     if not x.is_cuda:
@@ -97,7 +162,9 @@ _ARGTYPES = {
     "kmeans_assign": [ctypes.c_int] + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2,
     "kmeans_assign_reduce": [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4,
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6,
+    "kmeans_reduce_plan": [ctypes.c_int] * 4
+    + [ctypes.POINTER(ctypes.c_longlong)],
 }
 _FNS = {}   # name: (library, bound function) once loaded
 
@@ -110,6 +177,33 @@ def _fn(name):
         fn.restype = ctypes.c_int
         _FNS[name] = (lib, fn)
     return _FNS[name]
+
+
+def _plan(P: int, n: int, K: int, d: int):
+    """(workspace words, counters) of one reduction; the library's segment
+    and fan-in must be this module's (the emulation's) constants."""
+    out = (ctypes.c_longlong * 4)()
+    _fn("kmeans_reduce_plan")[1](P, n, K, d, out)
+    if (out[2], out[3]) != (REDUCE_SEG, REDUCE_FAN_IN):
+        raise RuntimeError(f"csrc/kmeans_assign.cu reduces in segments of "
+                           f"{out[2]}, groups of {out[3]}; this module says "
+                           f"{REDUCE_SEG}, {REDUCE_FAN_IN}")
+    return out[0], out[1]
+
+
+#: the reduction's group counters on each device: zeroed once when
+#: allocated, left zero by every launch (see the kernel's source); one
+#: stream at a time uses them
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(n: int, device: torch.device) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        size = max(n, 1024, 0 if c is None else 2 * c.numel())
+        c = _COUNTERS[device] = torch.zeros(size, dtype=torch.int32,
+                                            device=device)
+    return c
 
 
 def kmeans_assign_cuda(x, cents):
@@ -134,12 +228,16 @@ def kmeans_assign_reduce_cuda(x, cents, w):
     G, n, d = x3.shape
     P, K, _ = c3.shape
     dev = x3.device
+    words, n_ctr = _plan(P, n, K, d)
     assign = torch.empty((P, n), dtype=torch.int32, device=dev)
     sums = torch.empty((P, K, d), dtype=torch.float32, device=dev)
     cnts = torch.empty((P, K), dtype=torch.float32, device=dev)
+    ws = torch.empty((words,), dtype=torch.float32, device=dev)
+    ctr = _counters(n_ctr, dev)
     lib, fn = _fn("kmeans_assign_reduce")
     err = fn(dtype, x3.data_ptr(), c3.data_ptr(), w2.data_ptr(), P, R, n, K,
              d, assign.data_ptr(), sums.data_ptr(), cnts.data_ptr(),
+             ws.data_ptr(), ctr.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "kmeans_assign_reduce")
     COUNTS["kmeans_assign_reduce"] += 1

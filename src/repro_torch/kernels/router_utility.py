@@ -9,6 +9,7 @@ and its argmax and max per row, without writing A, C or U to memory.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,19 +25,23 @@ COUNTS = {"router_utility": 0}
 router_utility_plain = router_utility_ref
 
 
-def _signature(lib):
+@functools.cache
+def _bound():
+    """(library, entry point), loaded at the first launch and bound once."""
+    lib = _build.load("router_utility")
     fn = lib.router_utility_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p, ctypes.c_void_p,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return lib, fn
 
 
 def router_utility_cuda(h, acc_w, acc_b, cost_w, cost_b, lam):
     """Launch the CUDA kernel. h: (n, dh); heads (dh, M)/(M,), all on one
-    CUDA device. Inputs are taken in f32 (as the plain version upcasts).
+    CUDA device. Inputs are taken in f32 (as the plain version upcasts;
+    f32 contiguous inputs are used as they are, not copied).
     Returns (choice (n,) int32, best (n,) f32)."""
     if not h.is_cuda:
         raise ValueError("router_utility_cuda needs CUDA tensors")
@@ -54,10 +59,10 @@ def router_utility_cuda(h, acc_w, acc_b, cost_w, cost_b, lam):
         raise ValueError("router_utility inputs must share one device")
     choice = torch.empty((n,), dtype=torch.int32, device=h.device)
     best = torch.empty((n,), dtype=torch.float32, device=h.device)
-    lib = _build.load("router_utility")
+    lib, fn = _bound()
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = _signature(lib)(*[a.data_ptr() for a in args], float(lam), n, dh, M,
-                          choice.data_ptr(), best.data_ptr(), stream)
+    err = fn(*[a.data_ptr() for a in args], float(lam), n, dh, M,
+             choice.data_ptr(), best.data_ptr(), stream)
     _build.check(lib, err, "router_utility")
     COUNTS["router_utility"] += 1
     return choice, best

@@ -60,7 +60,8 @@ def _router_inputs(n, dh, M):
 
 
 @pytest.mark.parametrize("n,dh,M", [(17, 64, 3), (300, 512, 11),
-                                    (256, 512, 14), (1024, 128, 40)])
+                                    (256, 512, 14), (1024, 128, 40),
+                                    (33, 20, 2), (50, 77, 40), (9, 20, 40)])
 @pytest.mark.parametrize("lam", [0.0, 0.5, 10.0])
 def test_router_utility_matches_jax(n, dh, M, lam):
     arrs = _router_inputs(n, dh, M)

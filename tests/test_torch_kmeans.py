@@ -140,6 +140,134 @@ def test_assign_reduce_plain_matches_reference(n, d, K):
                                    atol=1e-5)
 
 
+def _emulation_case(case):
+    """(x (G, n, d), cents (G·R, K, d), w (G, n)) of one edge case of the
+    reduction kernel's segments and tree."""
+    S = tkm.REDUCE_SEG
+    rng = np.random.default_rng(len(case))
+    G, R, n, d, K, wkind = {
+        "n = S - 1": (1, 1, S - 1, 8, 5, "uniform"),
+        "n = S": (1, 1, S, 8, 5, "uniform"),
+        "n = S + 1": (1, 1, S + 1, 8, 5, "uniform"),
+        "n = 2S + 1": (1, 1, 2 * S + 1, 8, 5, "uniform"),
+        "n = 1": (1, 1, 1, 8, 5, "uniform"),
+        "one cluster takes every row": (1, 1, 2 * S + 1, 6, 4, "uniform"),
+        "empty clusters": (1, 1, S + 1, 6, 12, "uniform"),
+        "all weights zero": (1, 1, S + 1, 6, 4, "zero"),
+        "0/1 weights": (1, 1, 2 * S + 1, 7, 6, "01"),
+        "G x R batches": (2, 3, S + 1, 9, 5, "01"),
+        "R·K > 64": (2, 3, S + 1, 5, 30, "uniform"),
+    }[case]
+    x = rng.standard_normal((G, n, d)).astype(np.float32)
+    c = rng.standard_normal((G * R, K, d)).astype(np.float32)
+    if case == "one cluster takes every row":
+        c *= 100.0
+        c[:, 0] = 0.0
+    if case == "empty clusters":
+        c[:, 6:] *= 100.0
+    w = {"uniform": rng.uniform(size=(G, n)),
+         "zero": np.zeros((G, n)),
+         "01": rng.uniform(size=(G, n)) > 0.3}[wkind].astype(np.float32)
+    return x, c, w
+
+
+def _cluster_abs(a, x, w, K):
+    """Σ|w·x| of each cluster of the assignment a (n,): (K, d)."""
+    onehot = np.eye(K, dtype=np.float32)[a] * w[:, None]
+    return onehot.T @ np.abs(x)
+
+
+@pytest.mark.parametrize("case", [
+    "n = S - 1", "n = S", "n = S + 1", "n = 2S + 1", "n = 1",
+    "one cluster takes every row", "empty clusters", "all weights zero",
+    "0/1 weights", "G x R batches", "R·K > 64"])
+def test_segmented_emulation_matches_plain_and_reference(case):
+    """The reduction kernel's order (segments of 256 rows, each cluster's
+    rows in row order, the segments' partials added in groups of 16) in
+    plain PyTorch, against the one-hot plain version and, per problem,
+    the JAX reference oracle (and, for one segment, the Pallas kernel in
+    interpret mode): sums to |Δ| ≤ 1e-5 × Σ|w·x| of the cluster (two f32
+    orders of the same sum), counts exact for 0/1 weights and to 1e-5
+    otherwise, assignments equal; absent clusters sum to exactly 0."""
+    x, c, w = _emulation_case(case)
+    G, n, d = x.shape
+    P, K, _ = c.shape
+    R = P // G
+    xt, ct, wt = map(torch.from_numpy, (x, c, w))
+    a_e, s_e, n_e = tkm.kmeans_reduce_segmented_emulation(xt, ct, wt)
+    a_p, s_p, n_p = tkm.kmeans_assign_reduce_plain(xt, ct, wt)
+    assert (a_e.shape, s_e.shape, n_e.shape) == ((P, n), (P, K, d), (P, K))
+    assert s_e.dtype == n_e.dtype == torch.float32
+    np.testing.assert_array_equal(a_e.numpy(), a_p.numpy())
+    exact = case in ("0/1 weights", "G x R batches", "all weights zero")
+    for p in range(P):
+        a = a_e[p].numpy()
+        scale = _cluster_abs(a, x[p // R], w[p // R], K)
+        a_j, s_j, n_j = jref.kmeans_assign_reduce_ref(
+            jnp.asarray(x[p // R]), jnp.asarray(c[p]), jnp.asarray(w[p // R]))
+        _assert_assign(a, np.asarray(a_j), x[p // R], c[p])
+        for want, cnt in ((s_p[p].numpy(), n_p[p].numpy()),
+                          (np.asarray(s_j), np.asarray(n_j))):
+            assert np.all(np.abs(s_e[p].numpy() - want) <= 1e-5 * scale)
+            if exact:
+                np.testing.assert_array_equal(n_e[p].numpy(), cnt)
+            else:
+                np.testing.assert_allclose(n_e[p].numpy(), cnt, rtol=1e-5,
+                                           atol=1e-6)
+        absent = np.bincount(a[w[p // R] != 0], minlength=K) == 0
+        assert np.all(s_e[p].numpy()[absent] == 0.0)
+        assert np.all(n_e[p].numpy()[absent] == 0.0)
+    if case == "all weights zero":
+        assert not s_e.abs().sum() and not n_e.abs().sum()
+    if case == "one cluster takes every row":
+        assert np.all(n_e.numpy()[:, 1:] == 0.0)
+    if case == "n = S - 1":   # one segment: the fused Pallas kernel
+        a_k, s_k, n_k = kmeans_assign_reduce_pallas(
+            jnp.asarray(x[0]), jnp.asarray(c[0]), jnp.asarray(w[0]),
+            interpret=True)
+        np.testing.assert_array_equal(a_e[0].numpy(), np.asarray(a_k))
+        assert np.all(np.abs(s_e[0].numpy() - np.asarray(s_k))
+                      <= 1e-5 * _cluster_abs(a_e[0].numpy(), x[0], w[0], K))
+        np.testing.assert_allclose(n_e[0].numpy(), np.asarray(n_k),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_segmented_emulation_order():
+    """The emulation's order, spelled out on a small segment and fan-in (3
+    rows a segment, groups of 2): each segment's cluster sums fold fmaf
+    over its rows in row order from 0, and the tree adds ((s0 + s1) + (s2
+    + s3)) + (s4 + 0) level by level from 0; the kernel's own assignment
+    replaces the argmin when given."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((1, 14, 3)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((1, 2, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, (1, 14)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(0, 2, (1, 14)).astype(np.int32))
+    got_a, got, cnt = tkm.kmeans_reduce_segmented_emulation(
+        x, c, w, seg=3, fan_in=2, assign=a)
+    assert torch.equal(got_a, a)
+    f64 = np.float64
+    parts = np.zeros((5, 2, 3), np.float32)      # 5 segments of 3 rows
+    cparts = np.zeros((5, 2), np.float32)
+    for i in range(14):
+        k, s = int(a[0, i]), i // 3
+        parts[s, k] = (f64(w[0, i]) * x[0, i].numpy().astype(f64)
+                       + parts[s, k].astype(f64)).astype(np.float32)
+        cparts[s, k] = np.float32(cparts[s, k] + w[0, i].numpy())
+    for level in range(3):                       # 5 -> 3 -> 2 -> 1
+        m = parts.shape[0]
+        g = -(-m // 2)
+        pad = np.zeros((g * 2 - m,) + parts.shape[1:], np.float32)
+        cpad = np.zeros((g * 2 - m, 2), np.float32)
+        pp = np.concatenate([parts, pad]).reshape(g, 2, 2, 3)
+        cc = np.concatenate([cparts, cpad]).reshape(g, 2, 2)
+        parts = (np.zeros_like(pp[:, 0]) + pp[:, 0]) + pp[:, 1]
+        cparts = (np.zeros_like(cc[:, 0]) + cc[:, 0]) + cc[:, 1]
+    assert parts.shape[0] == 1
+    np.testing.assert_array_equal(got[0].numpy(), parts[0])
+    np.testing.assert_array_equal(cnt[0].numpy(), cparts[0])
+
+
 def test_reduce_plain_masks_padding_exactly():
     """Zero-weight rows add nothing; 0/1 counts are exact."""
     x = np.random.default_rng(0).normal(size=(37, 9)).astype(np.float32)
