@@ -36,8 +36,22 @@ each path and read just after it:
   secure aggregation; then one FedAvg round and one K-means fit under
   ``torch.profiler``.
 
-Last it checks that engine tokens equal per-request tokens on the reduced
-f32 models.
+Then the engine under overload and speculative decode: the verify's
+attention at the served shapes of qwen2-1.5b, yi-6b and qwen3-8b (the
+folded paged launch and the T contiguous launches equal to T one-position
+kernel calls bit for bit, each row alone equal to its row in the batch,
+both within the decode tolerance of the plain version); at full width,
+bf16, initial reservation with half the pages, deadlines, cancels and a
+shedding lane quota over both served models (one terminal status per
+request, every slot, page and pool tensor back as before), and
+speculative decode (``spec_k`` 4) with qwen3-8b drafted by qwen2-1.5b and
+the others by themselves, beside the plain engine.
+
+Last, on reduced f32 models: engine tokens equal per-request tokens; the
+reference's deadline replay (``benchmarks/perf_suite.py::bench_preempt``'s
+traffic, copied here) gives ``BENCH_preempt.json``'s counts in all six
+cells, with resumed requests equal to their solo tokens; speculative
+tokens equal the plain engine's, and self-drafting accepts every draft.
 
 Output: JSON lines, then the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -1011,9 +1025,9 @@ def run_path(torch, ops, name: str, fn, owns: dict, others: tuple) -> dict:
     return row
 
 
-def main_path(torch, dev) -> list:
+def main_path(torch, dev) -> tuple:
     """Every path of the slice at full width, each with its own launch
-    counts. Returns the ``serve`` rows."""
+    counts. Returns the ``serve`` rows and the pool."""
     from repro_torch import routers
     from repro_torch.config import RouterConfig
     from repro_torch.configs import get_config
@@ -1123,7 +1137,7 @@ def main_path(torch, dev) -> list:
         total += MAX_NEW
     emit({"phase": "full_width_engine_vs_solo", "agree": same / total})
     profile_decode(torch, srv, pool)
-    return rows
+    return rows, pool
 
 
 def profile_decode(torch, srv, pool) -> None:
@@ -1717,6 +1731,493 @@ def reduced_parity(torch, dev) -> None:
           "lams": [0.0, 0.5, 2.0], "equal": True})
 
 
+# ---------------------------------------------------------------------------
+# The engine under overload, and speculative decode
+# ---------------------------------------------------------------------------
+
+#: a copy of ``benchmarks/perf_suite.py::_WORDS`` (nothing of the
+#: benchmarks is imported here)
+_WORDS = ("write solve prove summarize explain draft the a of this that "
+          "integral poem theorem meeting notes carefully quickly now "
+          "report plan code review data model chart essay story").split()
+
+
+def deadline_traffic(seed: int, n_req: int, max_new: int, chunk: int,
+                     slack: int, scale: float = 1.0, tail: float = 0.3,
+                     long_words: tuple = (24, 57)) -> list:
+    """A copy of ``benchmarks/perf_suite.py::_deadline_traffic``: long-tail
+    Poisson arrivals on the engine-step clock (exponential gaps of mean
+    ``scale`` steps) with deadlines of slack..2·slack service times, the
+    long tail's 4× looser. The same seed gives the same events."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    steps = np.floor(np.cumsum(rng.exponential(scale, n_req))).astype(int)
+    svc = -(-max_new // chunk)               # solo decode steps
+    evs = []
+    for i in range(n_req):
+        long = rng.random() < tail
+        n_words = int(rng.integers(*long_words) if long
+                      else rng.integers(2, 13))
+        loose = 4 if long else 1
+        evs.append({"prompt": " ".join(rng.choice(_WORDS, n_words)),
+                    "step": int(steps[i]),
+                    "deadline": int(svc * slack * loose
+                                    + rng.integers(0, svc * slack))})
+    return evs
+
+
+#: the reference's ``bench_preempt`` replay (BENCH_preempt.json's meta):
+#: reduced qwen2-1.5b, pools of 64 pages / 2 and / 4
+REPLAY = {"n_req": 48, "max_new": 32, "chunk": 8, "max_seq": 128,
+          "page_size": 16, "slots": 8, "slack": 2, "scale": 0.25,
+          "long_words": (24, 57)}
+REPLAY_POLICIES = ("stall", "preempt", "shed")
+#: the two high-water counters BENCH_preempt.json does not hold, as the
+#: reference engine gives them on this replay: (queue_depth_hw,
+#: peak_active) per (oversubscription, policy)
+REPLAY_HW = {("2x", "stall"): (24, 8), ("2x", "preempt"): (21, 8),
+             ("2x", "shed"): (8, 8), ("4x", "stall"): (34, 5),
+             ("4x", "preempt"): (31, 8), ("4x", "shed"): (8, 5)}
+
+
+def replay_expected() -> dict:
+    """{(factor, policy): counts} the replay must reproduce, read from the
+    reference's BENCH_preempt.json and ``REPLAY_HW``."""
+    meta = json.loads((ROOT / "BENCH_preempt.json").read_text())["meta"]
+    keys = ("met_tokens", "completed", "expiries", "sheds", "preemptions",
+            "resume_recompute_toks")
+    out = {}
+    for f, cell in meta["oversub"].items():
+        for mode in REPLAY_POLICIES:
+            hw, peak = REPLAY_HW[(f, mode)]
+            out[(f, mode)] = {**{k: cell[mode][k] for k in keys},
+                              "queue_depth_hw": hw, "peak_active": peak}
+    return out
+
+
+def replay_server(torch, dev, pm, mode: str, factor: int):
+    """The replay's server for one cell: ``stall`` is lifetime
+    reservation, ``preempt`` initial reservation, ``shed`` lifetime with a
+    queue cap of ``slots`` shedding the latest deadline; one model behind
+    a one-cluster K-means router, as in the reference's bench."""
+    from repro_torch import routers
+    from repro_torch.config import RouterConfig
+    from repro_torch.serve.engine import EngineConfig
+    from repro_torch.serve.gateway import RoutedServer
+    r = REPLAY
+    kw = dict(slots=r["slots"], max_seq=r["max_seq"], chunk=r["chunk"],
+              page_size=r["page_size"],
+              pages=r["slots"] * (r["max_seq"] // r["page_size"]) // factor)
+    if mode == "preempt":
+        kw["reserve"] = "initial"
+    elif mode == "shed":
+        kw.update(queue_cap=r["slots"], shed_policy="reject-latest-deadline")
+    router = routers.make(
+        "kmeans", RouterConfig(d_emb=64, num_models=1),
+        state={"centroids": torch.zeros((1, 64), device=dev),
+               "A": torch.tensor([[0.9]], device=dev),
+               "C": torch.tensor([[0.1]], device=dev),
+               "n": torch.ones((1, 1), device=dev)})
+    return RoutedServer([pm], router, engine_cfg=EngineConfig(**kw),
+                        device=dev)
+
+
+def run_deadline_traffic(srv, events, max_new: int) -> dict:
+    """Replay a step-clock trace as the reference's
+    ``_run_deadline_traffic`` does: submit each arrival at its step, one
+    engine step per clock tick, drain. Returns the completed requests
+    ({rid: tokens}), each rid's event, and the counts."""
+    from repro_torch.serve.engine import DONE, PREEMPTED_RESUMED
+    ev = sorted(events, key=lambda e: e["step"])
+    meta, i, step = {}, 0, 0
+    while i < len(ev) or srv.engine.busy:
+        while i < len(ev) and ev[i]["step"] <= step:
+            rid = srv.submit(ev[i]["prompt"], lam=0.5,
+                             max_new_tokens=max_new,
+                             deadline=ev[i]["deadline"])
+            meta[rid] = ev[i]
+            i += 1
+        srv.step()
+        step += 1
+    res = srv.drain()
+    eng = srv.engine
+    completed = {r: res[r] for r in meta
+                 if eng.status(r) in (DONE, PREEMPTED_RESUMED)}
+    c = eng.counters()
+    counts = {"met_tokens": int(sum(len(v) for v in completed.values())),
+              "completed": len(completed),
+              **{k: c[k] for k in ("expiries", "sheds", "preemptions",
+                                   "resume_recompute_toks", "queue_depth_hw",
+                                   "peak_active")}}
+    return {"completed": completed, "meta": meta, "counts": counts}
+
+
+def verify_kernel(torch, dev) -> None:
+    """The speculative verify's attention at the served shapes
+    (qwen2-1.5b Hkv 2 g 6, yi-6b 4/8, qwen3-8b 8/4; bf16, hd 128, 8 rows,
+    T 4, windows across page boundaries, 16 pages of 16): the paged
+    verify's one folded launch and the slot-pool verify's T launches must
+    equal T one-position kernel calls bit for bit, and each row alone
+    (B = 1) its row in the batch; both within the decode tolerance of the
+    plain ``_masked_grouped_attn_multi``."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import paged_gather_ref
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device=dev).manual_seed(17)
+    B, T, hd, ps, npg = 8, 4, 128, 16, 16
+    P = B * npg + 1
+    pos = torch.tensor([14, 15, 29, 46, 63, 100, 158, 252], dtype=torch.int32,
+                       device=dev)                 # 252 + 3 = 255: the end
+    nv = A.verify_positions(pos, T) + 1            # (B, T) ≤ npg · ps
+    valid = (torch.arange(npg * ps, device=dev)[None, None, :]
+             < nv[:, :, None])
+    res = {}
+    for model, Hkv, g in (("qwen2-1.5b", 2, 6), ("yi-6b", 4, 8),
+                          ("qwen3-8b", 8, 4)):
+        qg = torch.randn((B, T, Hkv, g, hd), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        kp, vp = (torch.randn((P, Hkv, ps, hd), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        pt = torch.randperm(P - 1, generator=gen, device=dev)[
+            :B * npg].reshape(B, npg).int() + 1
+        k, v = paged_gather_ref(kp, pt), paged_gather_ref(vp, pt)
+        paged = A.verify_attention_paged(qg, kp, vp, pt, nv)
+        uniform = A.verify_attention(qg, k, v, nv)
+        seq_p = torch.stack([ops.paged_decode_attention(
+            qg[:, t], kp, vp, pt, nv[:, t].contiguous()) for t in range(T)],
+            dim=1)
+        seq_u = torch.stack([ops.decode_attention(
+            qg[:, t], k, v, nv[:, t].contiguous()) for t in range(T)], dim=1)
+        alone = torch.stack([torch.stack([ops.paged_decode_attention(
+            qg[b:b + 1, t], kp, vp, pt[b:b + 1], nv[b:b + 1, t])[0]
+            for t in range(T)]) for b in range(B)])
+        torch.cuda.synchronize()
+        for what, a, b in (("folded paged verify vs T paged calls", paged,
+                            seq_p),
+                           ("slot-pool verify vs T contiguous calls",
+                            uniform, seq_u),
+                           ("each row alone vs its row in the batch", alone,
+                            seq_p),
+                           ("paged vs contiguous", seq_p, seq_u)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"verify {model}: {what} differ in "
+                                     "their bits")
+        plain = A._masked_grouped_attn_multi(
+            qg.transpose(1, 2), k, v, valid).transpose(1, 2)
+        rep = lambda t: t.repeat_interleave(T, dim=0)   # noqa: E731
+        scale = da.decode_attention_plain(
+            qg.float().reshape(B * T, Hkv, g, hd), rep(k), rep(v.abs()),
+            nv.reshape(-1)).reshape(B, T, Hkv, g, hd)
+        errs = [check_close(torch, got, plain, f"verify {model} {kind}",
+                            scale) for kind, got in (("paged", paged),
+                                                     ("uniform", uniform))]
+        res[model] = {
+            "max_abs_err": max(e for e, _ in errs),
+            "err_over_tol": max(r for _, r in errs),
+            "paged_device_ms": device_ms(torch, lambda: (
+                A.verify_attention_paged(qg, kp, vp, pt, nv))),
+            "uniform_device_ms": device_ms(torch, lambda: (
+                A.verify_attention(qg, k, v, nv)))}
+    emit({"phase": "verify_kernel", "T": T, "positions": pos.tolist(),
+          "bit_equal": True, "shapes": res})
+
+
+def resilience_replay(torch, dev) -> dict:
+    """The reference's deadline replay (``bench_preempt``, reduced f32
+    qwen2-1.5b) on the card, six cells: 2× and 4× page oversubscription
+    under the stall, preempt and shed policies. Every count must equal the
+    reference's, and every completed request of a preempt cell its solo
+    tokens (preempted-and-resumed ones included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.gateway import RoutedServer, make_pool_model
+    r = REPLAY
+    pm = make_pool_model("qwen2-1.5b", get_config("qwen2-1.5b").reduced(),
+                         0.1, gen=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    events = deadline_traffic(0, r["n_req"], r["max_new"], r["chunk"],
+                              slack=r["slack"], scale=r["scale"],
+                              long_words=r["long_words"])
+    solo = {}                            # uncounted: the per-call path
+    for e in events:
+        if e["prompt"] not in solo:
+            toks = RoutedServer._tokenize([e["prompt"]], pm.cfg, None)
+            solo[e["prompt"]] = RoutedServer._serve_batch(pm, toks,
+                                                          r["max_new"])[0]
+    want = replay_expected()
+    cells = {}
+
+    def fn():
+        n = 0
+        for f in (2, 4):
+            for mode in REPLAY_POLICIES:
+                out = run_deadline_traffic(replay_server(torch, dev, pm,
+                                                         mode, f),
+                                           events, r["max_new"])
+                got = out["counts"]
+                if got != want[(f"{f}x", mode)]:
+                    raise AssertionError(f"replay {f}x {mode}: {got} vs the "
+                                         f"reference's "
+                                         f"{want[(f'{f}x', mode)]}")
+                if mode == "preempt":
+                    for rid, toks in out["completed"].items():
+                        if list(toks) != list(solo[out["meta"][rid]
+                                                   ["prompt"]]):
+                            raise AssertionError(
+                                f"replay {f}x preempt rid {rid}: resumed "
+                                "tokens differ from solo")
+                cells[f"{f}x {mode}"] = got
+                n += got["met_tokens"]
+        return n
+
+    KA, PA = "kmeans_assign", "paged_decode_attention"
+    row = run_path(torch, ops, "resilience replay (6 cells)", fn,
+                   {KA: None, PA: None},
+                   ("decode_attention", "router_utility",
+                    "kmeans_assign_reduce", "flash_attention"))
+    emit({"phase": "resilience_replay", "cells": cells,
+          "equal_to_reference": True, "resume_equal_to_solo": True})
+    return row
+
+
+def _pool_state(eng) -> dict:
+    """Every lane's pool storage and host bookkeeping, to hold the state
+    after ``drain`` against the state before."""
+    return {m: {"ptrs": [t.data_ptr() for layer in lane.pool.values()
+                         for t in layer.values()],
+                "free": sorted(lane.free),
+                "pages": sorted(lane.pt.free) if lane.paged else None}
+            for m, lane in eng._lanes.items()}
+
+
+def resilience_full_width(torch, dev, pool) -> dict:
+    """Overload at full width, bf16, both served models in one engine:
+    initial reservation with half the pages full concurrency needs (32 of
+    8 slots × 8 pages), 16 requests per lane of ``max_new`` 64 (growth
+    crosses page boundaries), deadlines on half of them, one cancel of an
+    active request and one of a queued one, and a yi-6b lane quota of 4
+    that sheds. Every request must end in exactly one terminal status,
+    submitted = completed + expired + cancelled + shed, preemptions > 0,
+    and every lane's slots, pages and pool storage must be as before."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import (DONE, PREEMPTED_RESUMED,
+                                          TERMINAL_STATUSES, EngineConfig,
+                                          Outcome, ServeEngine)
+    from repro_torch.serve.gateway import RoutedServer
+    max_new = 64
+    ecfg = EngineConfig(slots=8, max_seq=128, chunk=8, page_size=16,
+                        pages=32, reserve="initial", lane_quotas=((1, 4),))
+    eng = ServeEngine(pool, ecfg, device=dev)
+    toks = {m: [RoutedServer._tokenize([p], pm.cfg, None)[0]
+                for p in PROMPTS] for m, pm in enumerate(pool)}
+    info = {}
+
+    def submit(m, i):
+        dl = 10 + 4 * (i % 4) if i % 2 else None
+        return eng.submit(m, toks[m][i % len(PROMPTS)], max_new, deadline=dl)
+
+    def fn():
+        rids = [submit(m, i) for m in range(len(pool)) for i in range(8)]
+        before = _pool_state(eng)
+        eng.step()
+        eng.cancel(rids[0])                          # active
+        later = [submit(m, i) for m in range(len(pool))
+                 for i in range(8, 16)]
+        eng.cancel(later[7])                         # queued on lane 0
+        rids += later
+        done = eng.drain()
+        statuses = [eng.status(r) for r in rids]
+        if sorted(done) != sorted(rids) or any(
+                s not in TERMINAL_STATUSES for s in statuses):
+            raise AssertionError("full-width overload: a request without "
+                                 "exactly one terminal status")
+        c = eng.counters()
+        completed = sum(s in (DONE, PREEMPTED_RESUMED) for s in statuses)
+        if len(rids) != completed + c["expiries"] + c["cancels"] + c["sheds"]:
+            raise AssertionError(f"full-width overload: {len(rids)} submitted"
+                                 f", {completed} completed, {c}")
+        if c["preemptions"] == 0 or c["cancels"] != 2 or c["sheds"] == 0:
+            raise AssertionError(f"full-width overload exercised too little:"
+                                 f" {c}")
+        after = _pool_state(eng)
+        if after != before:
+            raise AssertionError("full-width overload: slots, pages or pool "
+                                 "storage not back to their initial state")
+        ntok = sum(len(v) for v in done.values()
+                   if not isinstance(v, Outcome))
+        info.update(counters=c, completed=completed, submitted=len(rids))
+        return ntok
+
+    row = run_path(torch, ops, "resilience full width", fn,
+                   {"paged_decode_attention": None},
+                   ("decode_attention", "router_utility", "kmeans_assign",
+                    "kmeans_assign_reduce", "flash_attention"))
+    emit({"phase": "resilience_full_width", **info,
+          "pages": ecfg.resolved_pages, "max_new": max_new,
+          "seconds": row["seconds"], "tok_per_s": row["tok_per_s"],
+          "paged_launches": row["launches"]["paged_decode_attention"]})
+    return row
+
+
+SPEC_K = 4
+SPEC_NEW = 32
+
+
+def _spec_pool(torch, dev, pool, reduced: bool):
+    """The three-model speculative pool: qwen2-1.5b (cost 0.05), yi-6b
+    (0.4) and qwen3-8b (0.6) behind a 3-model MLP router. ``pool`` holds
+    the first two; qwen3-8b is made here."""
+    from repro_torch import routers
+    from repro_torch.config import RouterConfig
+    from repro_torch.configs import get_config
+    from repro_torch.serve.gateway import make_pool_model
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cfg = get_config("qwen3-8b")
+    q3 = make_pool_model("qwen3-8b", cfg.reduced() if reduced else cfg, 0.6,
+                         gen=gen, device=dev)
+    router = routers.make("mlp", RouterConfig(num_models=3)).init(gen,
+                                                                  device=dev)
+    return list(pool) + [q3], router
+
+
+def _spec_pairs(srv, pool) -> list:
+    """(target, drafter) per lane, the drafter from ``_pick_draft`` on the
+    first prompt at λ 0.5."""
+    from repro_torch.data.encoder import encode
+    x = encode(PROMPTS[:1], srv.d_emb)[0]
+    return [(m, srv._pick_draft(m, x, 0.5)) for m in range(len(pool))]
+
+
+def _lane_run(eng, pool, m: int, draft=None, n: int = 4,
+              max_new: int = SPEC_NEW) -> tuple:
+    """``n`` prompts straight into lane ``m``; returns (their tokens in
+    submit order, the counters' change)."""
+    from repro_torch.serve.gateway import RoutedServer
+    c0 = eng.counters()
+    rids = [eng.submit(m, RoutedServer._tokenize([p], pool[m].cfg, None)[0],
+                       max_new, draft=draft) for p in PROMPTS[:n]]
+    done = eng.drain(rids)
+    c = {k: v - c0[k] for k, v in eng.counters().items()}
+    return [done[r] for r in rids], c
+
+
+def spec_full_width(torch, dev, pool) -> list:
+    """Speculative decode at full width, bf16, ``spec_k`` 4: qwen3-8b
+    drafted by qwen2-1.5b (the router's pick: the one cheaper model with
+    its vocabulary), qwen2-1.5b and yi-6b drafting for themselves. Per
+    pair: the counters, acceptance, launches, tokens/s and agreement with
+    the plain engine's tokens (printed: random bf16 weights leave
+    near-ties, and the verify's GEMMs have B·T rows)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import EngineConfig
+    from repro_torch.serve.gateway import RoutedServer
+    pool3, router = _spec_pool(torch, dev, pool, reduced=False)
+    spec = RoutedServer(pool3, router, device=dev,
+                        engine_cfg=EngineConfig(spec_k=SPEC_K))
+    plain = RoutedServer(pool3, router, device=dev)
+    pairs = _spec_pairs(spec, pool3)
+    if pairs != [(0, 0), (1, 1), (2, 0)]:
+        raise AssertionError(f"drafter pairs {pairs}: expected qwen3-8b "
+                             "drafted by qwen2-1.5b, the others by "
+                             "themselves")
+    UA, PA = "decode_attention", "paged_decode_attention"
+    others = ("router_utility", "kmeans_assign", "kmeans_assign_reduce",
+              "flash_attention")
+    for m, d in pairs:                               # warm-up, uncounted
+        _lane_run(plain.engine, pool3, m, n=1, max_new=8)
+        _lane_run(spec.engine, pool3, m, draft=d, n=1, max_new=8)
+    rows, res = [], {}
+    for m, d in pairs:
+        tgt, drf = pool3[m].name, pool3[d].name
+        base = {}
+
+        def plain_fn(m=m):
+            base["toks"], _ = _lane_run(plain.engine, pool3, m)
+            return sum(len(t) for t in base["toks"])
+
+        name = f"lane {tgt} x4" + ("" if m == 2 else f" max_new {SPEC_NEW}")
+        prow = run_path(torch, ops, name, plain_fn, {PA: None},
+                        (UA,) + others)
+        got = {}
+
+        def spec_fn(m=m, d=d):
+            got["toks"], got["c"] = _lane_run(spec.engine, pool3, m, draft=d)
+            return sum(len(t) for t in got["toks"])
+
+        srow = run_path(torch, ops, f"spec {tgt} drafted by {drf} x4",
+                        spec_fn, {UA: None, PA: None}, others)
+        c = got["c"]
+        if c["spec_drafted"] != c["spec_accepted"] + c["spec_rejected"]:
+            raise AssertionError(f"spec {tgt}: counters {c}")
+        agree = sum(int((a == b).sum()) for a, b in zip(got["toks"],
+                                                        base["toks"]))
+        res[f"{tgt} <- {drf}"] = {
+            **{k: c[k] for k in ("spec_rounds", "spec_drafted",
+                                 "spec_accepted", "spec_rejected")},
+            "acceptance": c["spec_accepted"] / c["spec_drafted"],
+            "agree_with_plain": agree / (4 * SPEC_NEW),
+            "spec_tok_per_s": srow["tok_per_s"],
+            "plain_tok_per_s": prow["tok_per_s"],
+            "launches": {k: srow["launches"][k] for k in (UA, PA)}}
+        rows += [prow, srow]
+    emit({"phase": "spec_full_width", "spec_k": SPEC_K, "max_new": SPEC_NEW,
+          "params": [mdl.param_count(pm.params) for pm in pool3],
+          "pairs": res})
+    return rows
+
+
+def spec_reduced_f32(torch, dev) -> list:
+    """The same three-model pool reduced to f32, paged and uniform lanes:
+    speculative tokens must equal the plain engine's exactly, for the
+    router-paired drafters and for self-drafting; self-drafting accepts
+    every draft; drafted = accepted + rejected."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    from repro_torch.serve.gateway import RoutedServer, make_pool_model
+    gen = torch.Generator(device=dev).manual_seed(4)
+    pool = [make_pool_model(a, get_config(a).reduced(), c, gen=gen,
+                            device=dev)
+            for a, c in (("qwen2-1.5b", 0.05), ("yi-6b", 0.4))]
+    pool3, router = _spec_pool(torch, dev, pool, reduced=True)
+    pairs = _spec_pairs(RoutedServer(pool3, router, device=dev), pool3)
+    res = {}
+
+    def fn():
+        n = 0
+        for page_size in (16, None):
+            plain = ServeEngine(pool3, EngineConfig(page_size=page_size),
+                                device=dev)
+            spec = ServeEngine(pool3, EngineConfig(page_size=page_size,
+                                                   spec_k=SPEC_K), device=dev)
+            for m, d in sorted(set(pairs) | {(m, m) for m, _ in pairs}):
+                base, _ = _lane_run(plain, pool3, m)
+                toks, c = _lane_run(spec, pool3, m, draft=d)
+                what = (f"spec reduced {pool3[m].name} drafted by "
+                        f"{pool3[d].name}, page_size {page_size}")
+                if any(list(a) != list(b) for a, b in zip(toks, base)):
+                    raise AssertionError(f"{what}: tokens differ from the "
+                                         "plain engine's")
+                if c["spec_drafted"] != c["spec_accepted"] + c["spec_rejected"]:
+                    raise AssertionError(f"{what}: counters {c}")
+                if m == d and c["spec_accepted"] != c["spec_drafted"]:
+                    raise AssertionError(f"{what}: self-drafting rejected "
+                                         f"drafts: {c}")
+                res[what] = c["spec_accepted"] / c["spec_drafted"]
+                n += sum(len(t) for t in toks)
+        return n
+
+    row = run_path(torch, ops, "spec reduced f32", fn,
+                   {"decode_attention": None, "paged_decode_attention": None},
+                   ("router_utility", "kmeans_assign",
+                    "kmeans_assign_reduce", "flash_attention"))
+    emit({"phase": "spec_reduced_f32", "equal": True, "acceptance": res})
+    return [row]
+
+
 def main() -> None:
     try:
         import torch
@@ -1761,11 +2262,17 @@ def main() -> None:
     emit({"phase": "decode_times", "chunk": da._bound().chunk,
           "launch_floor": _launch_floor(torch, dev),
           "shapes": _decode_served(torch, F, da, dev)})
+    verify_kernel(torch, dev)
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    paths = main_path(torch, dev)
+    paths, pool = main_path(torch, dev)
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    paths.append(resilience_full_width(torch, dev, pool))
+    paths += spec_full_width(torch, dev, pool)
+    del pool
+    emit({"phase": "engine_paths_done", "seconds": time.perf_counter() - t0})
     paths.append(flash_path(torch, dev))
     t0 = time.perf_counter()
     fit_rows, fitted = fit_phase(torch, dev, split)
@@ -1779,6 +2286,8 @@ def main() -> None:
     emit({"phase": "profile_fit_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     reduced_parity(torch, dev)
+    paths.append(resilience_replay(torch, dev))
+    paths += spec_reduced_f32(torch, dev)
     emit({"phase": "reduced_done", "seconds": time.perf_counter() - t0})
 
     for r in rows:

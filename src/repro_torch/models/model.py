@@ -44,18 +44,28 @@ def params_device(params: dict) -> torch.device:
 
 
 def _stack(fn, n: int) -> dict:
-    """Call ``fn`` n times (one layer each) and stack every leaf, one layer
-    at a time into a preallocated tensor to keep the peak low."""
+    """Call ``fn`` n times (one layer each) and stack every leaf of its
+    (nested) dict, one layer at a time into a preallocated tensor to keep
+    the peak low."""
+    def empty(tree):
+        if isinstance(tree, dict):
+            return {k: empty(v) for k, v in tree.items()}
+        return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
+                           device=tree.device)
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
     first = fn()
-    out = {}
-    for k, v in first.items():
-        out[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
-                             device=v.device)
-        out[k][0] = v
+    out = empty(first)
+    put(out, first, 0)
     del first
     for i in range(1, n):
-        for k, v in fn().items():
-            out[k][i] = v
+        put(out, fn(), i)
     return out
 
 
@@ -208,4 +218,42 @@ def decode_step_paged(params: dict, cache: dict, cfg: ModelConfig, *,
     page_table = torch.as_tensor(page_table, dtype=torch.int32, device=dev)
     return _decode(params, cache, cfg, tokens, embeds,
                    lambda p, h, c: A.attn_decode_step_paged(
+                       p, h, c, page_table, pos, cfg))
+
+
+def decode_verify(params: dict, cache: dict, cfg: ModelConfig, *, tokens,
+                  pos):
+    """Speculative verify: T consecutive positions per row in one call.
+    tokens: (B, T) int32 — each row's last committed token and its T - 1
+    drafts; pos: (B,) int32 base positions (where tokens[:, 0] is
+    written). K/V of all T positions is written ahead and each offset
+    attends below its own causal bound, so the logits (B, T, V) are,
+    position by position, what the one-token ``decode_step`` chain would
+    give. Writes the slot pool in place; returns (logits, cache)."""
+    _require_dense(cfg)
+    dev = params_device(params)
+    tokens = torch.as_tensor(tokens, device=dev)
+    # the write-ahead's in-bounds indices, from the host positions, once
+    # for all layers
+    writes = A.verify_slot_writes(pos, tokens.shape[1],
+                                  cache["l0"]["k"].shape[3], dev)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    return _decode(params, cache, cfg, tokens, None,
+                   lambda p, h, c: A.attn_decode_verify(p, h, c, pos, cfg,
+                                                        writes))
+
+
+def decode_verify_paged(params: dict, cache: dict, cfg: ModelConfig, *,
+                        tokens, page_table, pos):
+    """Paged twin of ``decode_verify`` (pool from ``init_paged_cache``).
+    tokens: (B, T) int32; page_table: (B, npg) int32; pos: (B,) int32.
+    Write-ahead past a row's claimed pages lands in the trash page.
+    Writes the pool in place; returns (logits (B, T, V), cache)."""
+    _require_dense(cfg)
+    dev = params_device(params)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    page_table = torch.as_tensor(page_table, dtype=torch.int32, device=dev)
+    tokens = torch.as_tensor(tokens, device=dev)
+    return _decode(params, cache, cfg, tokens, None,
+                   lambda p, h, c: A.attn_decode_verify_paged(
                        p, h, c, page_table, pos, cfg))

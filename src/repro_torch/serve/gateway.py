@@ -14,12 +14,22 @@ one (B, S) batch and decoded against a contiguous cache (the
 Batch sizes and prompt lengths are bucketed to powers of two, as in the
 reference, so the same requests see the same shapes on both paths.
 
-Not ported yet, each raising ``NotImplementedError``: the harvest store,
-fault plans (retries and failover), the cross-silo mesh, router hot-swap
-and model onboarding.
+On a speculative engine (``EngineConfig.spec_k > 0``) ``submit`` pairs
+each request with a drafter from the pool: the model the router itself
+ranks highest under A − λ·C among those strictly cheaper than the target
+that share its vocabulary (``_pick_draft``), else the target. Requests may
+carry a ``deadline``, may be cancelled and may be shed; ``step`` and
+``drain`` return a typed ``Outcome`` for those, and an expiry counts as a
+backend failure (``backend_failures``, ``expiry_failures``).
+
+Not ported yet, each raising ``NotImplementedError``: the harvest store
+(``client_id``, ``report_outcome``, ``routed_model``), fault plans
+(retries and failover), the cross-silo mesh, router hot-swap and model
+onboarding.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import zlib
 from typing import Callable, Dict, List, Optional, Union
@@ -32,7 +42,8 @@ from repro_torch.data.encoder import encode
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.routers import Router
-from repro_torch.serve.engine import EngineConfig, ServeEngine, next_pow2
+from repro_torch.serve.engine import (EXPIRED, EngineConfig, Outcome,
+                                      ServeEngine, next_pow2)
 from repro_torch.serve.kv_cache import extend_cache
 
 
@@ -101,6 +112,11 @@ class RoutedServer:
         self.router = router
         self.d_emb = router.rcfg.d_emb
         self.engine = ServeEngine(pool, engine_cfg, device=self.device)
+        #: expiries count as backend failures: the router should learn an
+        #: overloaded backend as it learns a failed one
+        self.backend_failures = 0
+        self.expiry_failures = 0
+        self._failed_rids = collections.deque(maxlen=4096)
 
     def _route_x(self, x: np.ndarray, lam: float) -> np.ndarray:
         """Route pre-encoded query embeddings x: (B, d_emb) → (B,) model
@@ -122,27 +138,87 @@ class RoutedServer:
                max_new_tokens: int = 16,
                tokenize: Optional[Callable] = None,
                x: Optional[np.ndarray] = None,
-               deadline: Optional[int] = None) -> int:
+               deadline: Optional[int] = None,
+               draft_model: Optional[int] = None) -> int:
         """Route one prompt and enqueue it on the continuous-batching
         engine; returns a request id. ``x`` supplies a pre-computed query
-        embedding instead of the stub ``encode``. Call ``step()`` to
+        embedding instead of the stub ``encode``. ``deadline`` bounds the
+        request's life in engine steps (``ServeEngine.submit``). On a
+        speculative engine the request drafts with ``draft_model`` (a pool
+        index) or else with ``_pick_draft``'s choice. Call ``step()`` to
         advance decoding or ``drain()`` to run to completion."""
         x_arr = (encode([prompt], self.d_emb)[0] if x is None
                  else np.asarray(x, np.float32).reshape(self.d_emb))
         m_idx = int(self._route_x(x_arr[None], lam)[0])
         toks = self._tokenize([prompt], self.pool[m_idx].cfg, tokenize)[0]
+        if self.engine.ecfg.spec_k:
+            draft = (int(draft_model) if draft_model is not None
+                     else self._pick_draft(m_idx, x_arr, lam))
+        elif draft_model is not None:
+            raise ValueError("submit(draft_model=...) needs a speculative "
+                             "engine — set EngineConfig.spec_k > 0")
+        else:
+            draft = None
         return self.engine.submit(m_idx, toks, max_new_tokens,
-                                  deadline=deadline)
+                                  deadline=deadline, draft=draft)
+
+    def _pick_draft(self, m_idx: int, x_arr: np.ndarray, lam: float) -> int:
+        """The drafter for a request routed to ``m_idx``: among pool models
+        that can draft for it — attention archs sharing its vocabulary —
+        and cost strictly less per token, the one the router ranks highest
+        under A − λ·C on this query; the target itself when none
+        qualifies. The router's best cheap model on this query is the
+        drafter most likely to agree with the target."""
+        tgt = self.pool[m_idx]
+        cand = [i for i, pm in enumerate(self.pool)
+                if i != m_idx
+                and pm.cost_per_token < tgt.cost_per_token
+                and pm.cfg.vocab == tgt.cfg.vocab
+                and pm.cfg.arch_type not in ("ssm", "hybrid")]
+        if not cand:
+            return m_idx
+        xt = torch.as_tensor(x_arr[None], dtype=torch.float32,
+                             device=self.device)
+        A, C = self.router.predict(xt)
+        util = (A[0] - lam * C[0]).cpu().numpy()
+        return max(cand, key=lambda i: util[i])
+
+    def cancel(self, rid: int) -> str:
+        """Cancel an engine request (``ServeEngine.cancel``); returns its
+        typed status."""
+        return self.engine.cancel(rid)
+
+    def status(self, rid: int) -> str:
+        """Typed lifecycle status of an engine request
+        (``ServeEngine.status``)."""
+        return self.engine.status(rid)
+
+    def _absorb_outcomes(self, results) -> None:
+        """Count each EXPIRED request once as a backend failure. (The
+        reference also records a zero-score outcome in the harvest store,
+        which the port does not have yet.)"""
+        for rid, payload in results:
+            if (isinstance(payload, Outcome) and payload.status == EXPIRED
+                    and rid not in self._failed_rids):
+                self._failed_rids.append(rid)
+                self.backend_failures += 1
+                self.expiry_failures += 1
 
     def step(self):
         """Advance every busy engine lane one chunk. Returns
-        [(request id, np tokens)] for the requests that completed."""
-        return self.engine.step()
+        [(request id, result)] for the requests that reached a terminal
+        state: np tokens for completions, an ``Outcome`` for expired,
+        cancelled or shed ones."""
+        finished = self.engine.step()
+        self._absorb_outcomes(finished)
+        return finished
 
-    def drain(self, rids=None) -> Dict[int, np.ndarray]:
-        """Run the engine until idle (or until ``rids`` complete); returns
-        {request id: np tokens}."""
-        return self.engine.drain(rids)
+    def drain(self, rids=None) -> Dict[int, object]:
+        """Run the engine until idle (or until ``rids`` end); returns
+        {request id: np tokens or ``Outcome``}."""
+        out = self.engine.drain(rids)
+        self._absorb_outcomes(out.items())
+        return out
 
     # ------------------------------------------------------------- generate
     def generate(self, prompts: List[str], *, lam: float = 0.5,

@@ -15,6 +15,9 @@ Three cache regimes, as in the reference:
   scatter target of inactive decode rows and the table filler past a
   request's reservation — reads from it are masked by validity.
 
+A speculative lane also keeps, per drafter, a uniform slot pool with
+``spec_k`` positions of headroom (``alloc_draft_pool``).
+
 The pools are written in place (the reference donates their buffers).
 """
 from __future__ import annotations
@@ -54,6 +57,17 @@ def write_slot(pool, prefill_cache, slot: int):
     return pool
 
 
+def alloc_draft_pool(cfg, slots: int, max_seq: int, spec_k: int, *, device):
+    """The drafter's slot pool for a speculative lane: a uniform pool with
+    ``spec_k`` positions of write-ahead headroom past the target's region.
+    The drafter decodes sequentially through the speculative window, and
+    its last draft for a request ending flush at ``max_seq`` writes at
+    position ``max_seq + spec_k - 1``; without the headroom the clamped
+    one-token write would land on the region's live tail (costing
+    acceptance, never correctness: the verify decides every token)."""
+    return alloc_slot_pool(cfg, slots, max_seq + spec_k, device=device)
+
+
 def alloc_page_pool(cfg, pages: int, page_size: int, *, device):
     """The persistent paged cache for one model: leaves
     (n_units, pages + 1, Hkv, page_size, hd) — ``pages`` allocatable pages
@@ -84,6 +98,10 @@ class PageTable:
     def available(self) -> int:
         return len(self.free)
 
+    def held(self, slot: int) -> int:
+        """Pages currently held by ``slot`` (0 if none)."""
+        return len(self._held.get(slot, ()))
+
     def alloc(self, slot: int, n: int) -> np.ndarray:
         """Claim n pages for ``slot``; returns their pool indices in
         logical-block order. Raises if the pool is exhausted (callers gate
@@ -99,10 +117,35 @@ class PageTable:
         self._held[slot] = got
         return np.asarray(got, np.int32)
 
+    def grow(self, slot: int, n: int) -> np.ndarray:
+        """On-demand growth: append ``n`` more pages to a slot that already
+        holds some (initial reservation: the engine grows a request's row
+        right before its writes cross a page boundary). Raises on a slot
+        holding nothing (growth is not admission), past the table width,
+        and on exhaustion (callers preempt a victim first)."""
+        if slot not in self._held:
+            raise RuntimeError(f"slot {slot} holds no pages — grow() "
+                               "extends an existing reservation; use "
+                               "alloc() to admit")
+        held = self._held[slot]
+        if len(held) + n > self.max_pages:
+            raise RuntimeError(
+                f"slot {slot} cannot grow to {len(held) + n} pages: the "
+                f"table row is {self.max_pages} wide (max_seq-bound)")
+        if n > len(self.free):
+            raise RuntimeError(f"page pool exhausted: grow needs {n}, "
+                               f"have {len(self.free)}")
+        got = [self.free.pop() for _ in range(n)]
+        self.table[slot, len(held):len(held) + n] = got
+        held.extend(got)
+        return np.asarray(got, np.int32)
+
     def release(self, slot: int) -> bool:
-        """Return a slot's pages to the free list and zero its row. A slot
-        holding nothing is a no-op returning False; a slot outside the
-        table raises IndexError."""
+        """Return a slot's pages to the free list and zero its row.
+        Deterministic under the cancel, expiry and preemption paths: a slot
+        holding nothing (a double release included) is a no-op returning
+        False, so the free list is never corrupted; a slot outside the
+        table is a caller's bug and raises IndexError."""
         if not 0 <= int(slot) < self.table.shape[0]:
             raise IndexError(
                 f"slot {slot} outside the page table "

@@ -56,9 +56,30 @@ def test_port_has_every_slice_module():
             "kernels/flash_attention.py", "kernels/csrc/flash_attention.cu",
             "core/mf_router.py", "routers/mf.py", "core/expansion.py",
             "core/elo_router.py", "routers/elo.py",
-            "core/personalization.py", "core/secure_agg.py"]
+            "core/personalization.py", "core/secure_agg.py",
+            # slice 7: the whole serving engine and qk-norm (qwen3-8b)
+            "configs/qwen3_8b.py"]
     pkg = ROOT / "src" / "repro_torch"
     assert [w for w in want if not (pkg / w).is_file()] == []
+    # slice 7 grew modules that slice 1 began: what each must now define
+    defs = {"serve/kv_cache.py": ["alloc_draft_pool", "grow", "held"],
+            "models/attention.py": ["_masked_grouped_attn_multi",
+                                    "attn_decode_verify",
+                                    "attn_decode_verify_paged",
+                                    "verify_attention",
+                                    "verify_attention_paged"],
+            "models/model.py": ["decode_verify", "decode_verify_paged"],
+            "serve/engine.py": ["Outcome", "cancel", "status", "counters",
+                                "_expire", "_preempt", "_grow_for_chunk",
+                                "_admit_draft", "_decode_spec_round"],
+            "serve/gateway.py": ["_pick_draft", "cancel", "status"]}
+    missing = []
+    for f, names in defs.items():
+        tree = ast.parse((pkg / f).read_text())
+        have = {n.name for n in ast.walk(tree)
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+        missing += [f"{f}::{n}" for n in names if n not in have]
+    assert missing == []
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):

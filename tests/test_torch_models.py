@@ -1,9 +1,11 @@
 """The PyTorch port's dense model against the JAX reference on the CPU.
 
-The reference initializes reduced qwen2-1.5b and yi-6b in f32; the port
-takes the same weights through ``repro_torch.convert``. Prefill logits, the
-returned cache and the contiguous and paged decode steps agree to 1e-4,
-and greedy tokens are equal.
+The reference initializes reduced qwen2-1.5b, yi-6b and qwen3-8b (qk-norm)
+in f32; the port takes the same weights through ``repro_torch.convert``.
+Prefill logits, the returned cache, the contiguous and paged decode steps
+and the speculative verify (``decode_verify[_paged]``, write-ahead past the
+region dropped or sent to the trash page) agree to 1e-4, and greedy tokens
+are equal.
 """
 from dataclasses import asdict
 
@@ -21,7 +23,7 @@ from repro_torch.models import model as mdl
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen2-1.5b", "yi-6b"]
+ARCHS = ["qwen2-1.5b", "yi-6b", "qwen3-8b"]
 # the reference's functions, jitted once per config so repeated steps reuse
 # one compiled program
 J_FORWARD = jax.jit(jmdl.forward, static_argnums=1,
@@ -29,6 +31,8 @@ J_FORWARD = jax.jit(jmdl.forward, static_argnums=1,
                                      "logits_last_only"))
 J_DECODE = jax.jit(jmdl.decode_step, static_argnums=2)
 J_DECODE_PAGED = jax.jit(jmdl.decode_step_paged, static_argnums=2)
+J_VERIFY = jax.jit(jmdl.decode_verify, static_argnums=2)
+J_VERIFY_PAGED = jax.jit(jmdl.decode_verify_paged, static_argnums=2)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -180,6 +184,110 @@ def test_greedy_tokens_match_jax(pair):
         jtok = jnp.argmax(jl[:, -1], -1)[:, None].astype(jnp.int32)
         ttok = tl[:, -1].argmax(-1)[:, None].int()
     np.testing.assert_array_equal(np.stack(tt, 1), np.stack(jt, 1))
+
+
+def test_qk_norm_scales_match_jax():
+    """qk-norm with non-unit scales (the init's are ones): the per-head
+    RMSNorm of q and k before RoPE, in prefill and decode."""
+    jcfg = jget_config("qwen3-8b").reduced()
+    cfg = get_config("qwen3-8b").reduced()
+    assert cfg.qk_norm
+    jp = jmdl.init_params(jax.random.PRNGKey(4), jcfg)
+    rng = np.random.default_rng(4)
+    mixer = jp["blocks"]["l0"]["mixer"]
+    for name in ("q_norm", "k_norm"):
+        scale = mixer[name]["scale"]
+        assert scale.shape == (cfg.n_layers, cfg.head_dim)
+        mixer[name]["scale"] = jnp.asarray(
+            rng.uniform(0.5, 1.5, scale.shape).astype(np.float32))
+    tp = convert.model_params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                         device="cpu")
+    toks = _tokens(cfg, 2, 16, seed=4)
+    jl, _, jc = J_FORWARD(jp, jcfg, tokens=jnp.asarray(toks),
+                          return_cache=True, q_chunk=8)
+    tl, _, tc = mdl.forward(tp, cfg, tokens=torch.from_numpy(toks),
+                            return_cache=True, q_chunk=8)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(tc["l0"]["k"].numpy(),
+                               np.asarray(jc["l0"]["k"]), **TOL)
+    cache = _junk_cache(jmdl.init_decode_cache(jcfg, 2, 24), 5)
+    tok, pos = np.array([3, 9], np.int32), np.array([16, 7], np.int32)
+    jl, _ = J_DECODE(jp, jax.tree.map(jnp.asarray, cache), jcfg,
+                     tokens=jnp.asarray(tok)[:, None], pos=jnp.asarray(pos))
+    tl, _ = mdl.decode_step(tp, jax.tree.map(torch.from_numpy, cache), cfg,
+                            tokens=torch.from_numpy(tok)[:, None],
+                            pos=torch.from_numpy(pos))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+def test_decode_verify_matches_jax(pair):
+    """The slot-pool verify: T = 4 positions per row over a cache of W =
+    32 holding the same junk on both sides. Row 2 starts at 30, so its
+    offsets 2 and 3 fall past the pool: they must be dropped, not clamped
+    onto position 31. The logits also match the port's own one-token
+    decode chain over the same tokens."""
+    jcfg, cfg, jp, tp = pair
+    B, W, T = 3, 32, 4
+    cache = _junk_cache(jmdl.init_decode_cache(jcfg, B, W), 6)
+    toks = _tokens(cfg, B, T, seed=6)
+    pos = np.array([3, 17, 30], np.int32)
+    jl, jc = J_VERIFY(jp, jax.tree.map(jnp.asarray, cache), jcfg,
+                      tokens=jnp.asarray(toks), pos=jnp.asarray(pos))
+    tc = jax.tree.map(torch.from_numpy, cache)
+    tl, tc = mdl.decode_verify(tp, tc, cfg, tokens=torch.from_numpy(toks),
+                               pos=pos)
+    assert tl.shape == (B, T, cfg.vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc["l0"][k].numpy(),
+                                   np.asarray(jc["l0"][k]), **TOL)
+    # offset 1 of row 2 landed at 31 and nothing overwrote it; below the
+    # rows' windows the junk is untouched
+    seq = jax.tree.map(torch.from_numpy, cache)
+    for t in range(T):
+        sl, seq = mdl.decode_step(tp, seq, cfg,
+                                  tokens=torch.from_numpy(toks[:, t:t + 1]),
+                                  pos=torch.from_numpy(pos + t))
+        keep = pos + t < W
+        np.testing.assert_allclose(sl[keep, 0].numpy(),
+                                   tl[keep, t].numpy(), **TOL)
+    np.testing.assert_array_equal(tc["l0"]["k"][:, 2, :, :30].numpy(),
+                                  cache["l0"]["k"][:, 2, :, :30])
+    np.testing.assert_allclose(tc["l0"]["k"][:, 2, :, 31].numpy(),
+                               seq["l0"]["k"][:, 2, :, 31].numpy(), **TOL)
+
+
+def test_decode_verify_paged_matches_jax(pair):
+    """The paged verify: a window past the table's extent (row 0: 29–32,
+    npg · ps = 32), one crossing a page boundary (row 1), one running into
+    a block whose table entry is 0 (row 2), and an idle row on the trash
+    page. Every live page agrees with the reference's, and so does every
+    logit whose attention reads no trash page."""
+    jcfg, cfg, jp, tp = pair
+    P, ps, T = 10, 8, 4
+    cache = _junk_cache(jmdl.init_paged_cache(jcfg, P, ps), 7)
+    pt = np.array([[1, 2, 3, 4], [5, 6, 7, 9], [8, 0, 0, 0],
+                   [0, 0, 0, 0]], np.int32)
+    toks = _tokens(cfg, 4, T, seed=7)
+    pos = np.array([29, 22, 6, 0], np.int32)
+    jl, jc = J_VERIFY_PAGED(jp, jax.tree.map(jnp.asarray, cache), jcfg,
+                            tokens=jnp.asarray(toks),
+                            page_table=jnp.asarray(pt), pos=jnp.asarray(pos))
+    tc = jax.tree.map(torch.from_numpy, cache)
+    tl, tc = mdl.decode_verify_paged(tp, tc, cfg,
+                                     tokens=torch.from_numpy(toks),
+                                     page_table=pt, pos=pos)
+    # the trash page's contents are unspecified: rows 2 (offsets 2, 3)
+    # and 3 read it
+    np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl)[:2], **TOL)
+    np.testing.assert_allclose(tl[2, :2].numpy(), np.asarray(jl)[2, :2],
+                               **TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc["l0"][k][:, 1:].numpy(),
+                                   np.asarray(jc["l0"][k])[:, 1:], **TOL)
+    # page 8 keeps its junk below row 2's window (offsets 0–5)
+    np.testing.assert_array_equal(tc["l0"]["k"][:, 8, :, :6].numpy(),
+                                  cache["l0"]["k"][:, 8, :, :6])
 
 
 def test_bf16_weights_convert_bit_for_bit():
