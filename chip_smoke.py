@@ -7,10 +7,10 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc``, holds each kernel against
 its plain PyTorch version (at the serving shapes, at the shapes of the
 reference's kernel tests and at the router fit's shapes; the decode
-kernels also at their chunk edges, hd 64, every dtype pair, and paged
-against contiguous bit for bit; the K-means reduction also against its
-segmented emulation, at its segment and tree edges, and two launches bit
-for bit), times both and times each kernel in rounds interleaved with the
+kernels also at their chunk edges, hd 64, 80 and 112, every dtype pair,
+and paged against contiguous bit for bit; the K-means reduction also
+against its segmented emulation, at its segment and tree edges, and two
+launches bit for bit), times both and times each kernel in rounds interleaved with the
 one PyTorch call that computes its function (with and without host work;
 the decode kernels also at the served shapes; the K-means reduction
 beside the assignment alone; the router beside a one-launch floor), then
@@ -47,11 +47,21 @@ request, every slot, page and pool tensor back as before), and
 speculative decode (``spec_k`` 4) with qwen3-8b drafted by qwen2-1.5b and
 the others by themselves, beside the plain engine.
 
-Last, on reduced f32 models: engine tokens equal per-request tokens; the
+Then, on reduced f32 models: engine tokens equal per-request tokens; the
 reference's deadline replay (``benchmarks/perf_suite.py::bench_preempt``'s
 traffic, copied here) gives ``BENCH_preempt.json``'s counts in all six
 cells, with resumed requests equal to their solo tokens; speculative
 tokens equal the plain engine's, and self-drafting accepts every draft.
+
+Last, the MoE, SSM and hybrid models, one full-width load at a time:
+phi-3.5-MoE (16 of its 32 layers) on the paged engine and mamba2-370m
+(whole) on the per-call path behind one MLP router, phi also per call;
+kimi-k2 (1 of its 61 layers; head dim 112, so the decode kernels' padded
+build) on both paths; each MoE decode step timed against its weight-read
+bound. On reduced f32 jamba, phi-3.5-MoE, kimi-k2, mamba2-370m and
+internvl2-2b: engine tokens equal per-request tokens, SSM and hybrid
+per-call tokens at prompts of 1–5 tokens equal token-by-token decode; and
+hubert's forward is finite.
 
 Output: JSON lines, then the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -342,7 +352,8 @@ def _sdpa_call(torch, F, q, k, v, nv):
 def _decode_edges(torch, da, dev, check, errs_c, errs_p) -> None:
     """Both decode kernels at the chunk edges (n_valid C−1, C, C+1, 2C+1,
     3C−1, 0, 1 and the capacity, one row each, C the compiled chunk size),
-    at hd 64 and 128, g 1, 6 and 8, for all four (q, cache) dtype pairs,
+    at hd 64 and 128 and at the padded hd 80 (hubert's) and 112
+    (kimi-k2's), g 1, 6 and 8, for all four (q, cache) dtype pairs,
     each against its plain version; and the paged kernel's output equal bit
     for bit to the contiguous kernel's on the same logical contents, with
     NaN in the trash page and past n_valid in a longer contiguous cache
@@ -357,7 +368,7 @@ def _decode_edges(torch, da, dev, check, errs_c, errs_p) -> None:
     bf, f32 = torch.bfloat16, torch.float32
     blk = torch.arange(npg, device=dev)[None, :] * ps
     nan = float("nan")
-    for hd in (64, 128):
+    for hd in (64, 80, 112, 128):
         for Hkv, g in ((2, 6), (4, 8), (1, 1)):
             for qd, cd in ((bf, bf), (f32, f32), (f32, bf), (bf, f32)):
                 what = f"hd={hd} Hkv={Hkv} g={g} q {qd} cache {cd} edges"
@@ -397,17 +408,19 @@ def _decode_edges(torch, da, dev, check, errs_c, errs_p) -> None:
 
 def _decode_served(torch, F, da, dev) -> dict:
     """Both decode kernels at the served shapes, checked and timed against
-    SDPA: qwen2-1.5b (Hkv 2, g 6) and yi-6b (Hkv 4, g 8), bf16, 8 decode
-    slots at 1–46 valid positions (the served prompts of 1–14 words plus
-    the profile's 32 decode steps), 16 pages of 16 per row (the engine's
-    max_seq 256); the contiguous kernel over the same 256 positions."""
+    SDPA: qwen2-1.5b (Hkv 2, g 6, hd 128), yi-6b (Hkv 4, g 8, hd 128) and
+    kimi-k2 (Hkv 8, g 8, hd 112), bf16, 8 decode slots at 1–46 valid
+    positions (the served prompts of 1–14 words plus the profile's 32
+    decode steps), 16 pages of 16 per row (the engine's max_seq 256); the
+    contiguous kernel over the same 256 positions."""
     from repro_torch.kernels.ref import paged_gather_ref
     gen = torch.Generator(device=dev).manual_seed(14)
-    B, hd, ps, npg = 8, 128, 16, 16
+    B, ps, npg = 8, 16, 16
     P = B * npg + 1
     dt = torch.bfloat16
     out = {}
-    for model, Hkv, g in (("qwen2-1.5b", 2, 6), ("yi-6b", 4, 8)):
+    for model, Hkv, g, hd in (("qwen2-1.5b", 2, 6, 128), ("yi-6b", 4, 8, 128),
+                              ("kimi-k2", 8, 8, 112)):
         nv = torch.randint(1, 47, (B,), generator=gen, device=dev).int()
         q = torch.randn((B, Hkv, g, hd), generator=gen, device=dev).to(dt)
         kp, vp = (torch.randn((P, Hkv, ps, hd), generator=gen,
@@ -429,6 +442,7 @@ def _decode_served(torch, F, da, dev) -> dict:
                                "bfloat16")
             t = interleaved_ms(torch, fn, sdpa)
             out[f"{model} {kind}"] = {
+                "Hkv": Hkv, "g": g, "hd": hd,
                 "err_over_tol": err[1], "n_valid": nv.tolist(),
                 "bound_ms": b_ms, "bound_by": b_by,
                 **{key: t[key] for key in ("ms", "device_ms", "library_ms",
@@ -1140,16 +1154,16 @@ def main_path(torch, dev) -> tuple:
     return rows, pool
 
 
-def profile_decode(torch, srv, pool) -> None:
-    """Where a decode step's time goes at full width: both lanes hold 8
-    requests; one engine step (one 8-token chunk per lane, 16 decode
-    steps) is timed bare, then traced with torch.profiler. Reports the
-    device's busy time by kernel and its idle share of the bare step."""
+def _traced_step(torch, srv, lanes) -> tuple:
+    """Fill each lane in ``lanes`` with 8 requests (PROMPTS[:8], 32 new
+    tokens), admit them and decode a first chunk, then time one engine
+    step bare and one under torch.profiler, and drain. Returns (bare
+    seconds, traced seconds, [(kernel, device ms, launches)])."""
     from torch.profiler import ProfilerActivity, profile
     eng = srv.engine
-    for m in range(len(pool)):
+    for m in lanes:
         for p in PROMPTS[:8]:
-            eng.submit(m, srv._tokenize([p], pool[m].cfg, None)[0], 32)
+            eng.submit(m, srv._tokenize([p], srv.pool[m].cfg, None)[0], 32)
     eng.step()                                  # admission + first chunk
     _, bare = timed(torch, eng.step)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1157,8 +1171,18 @@ def profile_decode(torch, srv, pool) -> None:
         _, traced = timed(torch, eng.step)
     eng.drain()
     cuda = torch.autograd.DeviceType.CUDA
-    kern = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == cuda]
+    return bare, traced, [(e.key, e.self_device_time_total / 1e3, e.count)
+                          for e in prof.key_averages()
+                          if e.device_type == cuda]
+
+
+def profile_decode(torch, srv, pool) -> None:
+    """Where a decode step's time goes at full width: both lanes hold 8
+    requests; one engine step (one 8-token chunk per lane, 16 decode
+    steps) is timed bare, then traced with torch.profiler. Reports the
+    device's busy time by kernel and its idle share of the bare step."""
+    eng = srv.engine
+    bare, traced, kern = _traced_step(torch, srv, range(len(pool)))
     busy = sum(ms for _, ms, _ in kern)
 
     def group(name):
@@ -2218,6 +2242,270 @@ def spec_reduced_f32(torch, dev) -> list:
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# MoE, SSM and hybrid models
+# ---------------------------------------------------------------------------
+
+
+def _cut(cfg, n_layers: int):
+    """``cfg`` at its full width, cut to ``n_layers`` layers."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def _steered_router(torch, dev, gen):
+    """An MLP router over 2 models whose head biases steer λ 0 to model 0
+    (accuracy logit +6) and λ 2 to model 1 (model 0's cost +4): the
+    random trunk decides nothing, so both lanes are sure to be served."""
+    from repro_torch import routers
+    from repro_torch.config import RouterConfig
+    router = routers.make("mlp", RouterConfig(num_models=2)).init(gen,
+                                                                  device=dev)
+    heads = dict(router.state["heads"])
+    heads["acc_b"] = torch.tensor([6.0, 0.0], device=dev)
+    heads["cost_b"] = torch.tensor([4.0, 0.0], device=dev)
+    return router.with_state({**router.state, "heads": heads})
+
+
+def profile_moe_decode(torch, srv, m: int) -> dict:
+    """One full-width MoE lane holding 8 requests: one engine step (a chunk
+    of ``chunk`` decode steps) timed bare, then traced with torch.profiler.
+    Per decode step: wall time, device busy time and the weight-read
+    bound. The dense dispatch reads every expert of every layer each step,
+    so the bound is every weight but the token table (of which a step
+    reads 8 rows) over the HBM rate."""
+    pm = srv.pool[m]
+    bare, traced, kern = _traced_step(torch, srv, [m])
+    n = srv.engine.ecfg.chunk
+    busy = sum(ms for _, ms, _ in kern)
+    wbytes = _nbytes(pm.params) - _nbytes(pm.params["embed"]["tok"])
+    row = {"phase": "moe_decode_profile", "model": pm.name,
+           "layers": pm.cfg.n_layers, "decode_rows": 8, "decode_steps": n,
+           "step_ms_bare": bare * 1e3 / n, "step_ms_traced": traced * 1e3 / n,
+           "device_busy_ms": busy / n,
+           "device_idle_share": (1 - busy / (bare * 1e3)) if busy else None,
+           "weight_gb": wbytes / 1e9,
+           "weights_read_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3,
+           "top": [{"kernel": k[:90], "ms": ms / n, "launches": c / n}
+                   for k, ms, c in sorted(kern, key=lambda r: -r[1])[:6]]}
+    row["bound_over_busy"] = (row["weights_read_bound_ms"]
+                              / row["device_busy_ms"] if busy else None)
+    emit(row)
+    return row
+
+
+def _arch_pool_row(torch, dev, pool, t0) -> None:
+    from repro_torch.models import model as mdl
+    emit({"phase": "arch_pool", "models": [pm.name for pm in pool],
+          "layers": [pm.cfg.n_layers for pm in pool],
+          "params": [mdl.param_count(pm.params) for pm in pool],
+          "active_params": [mdl.active_param_count(pm.params, pm.cfg)
+                            for pm in pool],
+          "init_seconds": time.perf_counter() - t0,
+          "mem_gib": torch.cuda.memory_allocated(dev) / 2 ** 30})
+
+
+def arch_full_width(torch, dev) -> list:
+    """phi-3.5-MoE at full width cut to 16 of its 32 layers (all 32 need
+    84 GB in bf16) and mamba2-370m whole (48 layers), random bf16 weights,
+    behind one MLP router steered so that λ 0 serves phi on the paged
+    engine and λ 2 serves mamba2 on the per-call path (SSM state cannot
+    share padded buckets); then phi on the per-call path (engine=False).
+    The launch counters show the router (#1), the paged kernel (#3, once
+    per layer per decode step) and the contiguous kernel (#2); every
+    request is answered. Then phi's decode step against its weight-read
+    bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.gateway import RoutedServer, make_pool_model
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    phi = _cut(get_config("phi3.5-moe-42b-a6.6b"), 16)
+    pool = [make_pool_model(phi.name, phi, 0.4, gen=gen, device=dev),
+            make_pool_model("mamba2-370m", get_config("mamba2-370m"), 0.05,
+                            gen=gen, device=dev)]
+    srv = RoutedServer(pool, _steered_router(torch, dev, gen), device=dev)
+    torch.cuda.synchronize()
+    _arch_pool_row(torch, dev, pool, t0)
+    for lam in (0.0, 2.0):                     # warm-up, uncounted
+        for kw in ({}, {"engine": False}):
+            check_result(srv.generate(PROMPTS[:2], lam=lam,
+                                      max_new_tokens=MAX_NEW, **kw), pool, 2)
+    UA, PA, RU = "decode_attention", "paged_decode_attention", "router_utility"
+    KA, KR, FA = "kmeans_assign", "kmeans_assign_reduce", "flash_attention"
+    routed = {}
+
+    def gen_fn(lam, **kw):
+        def fn():
+            out = srv.generate(PROMPTS, lam=lam, max_new_tokens=MAX_NEW, **kw)
+            routed[lam, kw.get("engine", True)] = out["routing"]
+            return check_result(out, pool, len(PROMPTS))
+        return fn
+
+    rows = [run_path(torch, ops, "arch generate lam=0.0 (phi on the engine)",
+                     gen_fn(0.0), {RU: 1, PA: None}, (UA, KA, KR, FA)),
+            run_path(torch, ops, "arch generate lam=2.0 (mamba2 per call)",
+                     gen_fn(2.0), {RU: 1}, (UA, PA, KA, KR, FA)),
+            run_path(torch, ops, "arch generate lam=0.0 engine=False",
+                     gen_fn(0.0, engine=False), {RU: 1, UA: None},
+                     (PA, KA, KR, FA))]
+    if rows[0]["launches"][PA] % phi.n_layers:
+        raise AssertionError(f"phi lane: {rows[0]['launches'][PA]} paged "
+                             f"launches, not a multiple of {phi.n_layers}")
+    for (lam, _), r in routed.items():
+        if set(r) != {0 if lam == 0.0 else 1}:
+            raise AssertionError(f"λ {lam} routed {r}: the steered router "
+                                 "should send every request to one model")
+    prof = profile_moe_decode(torch, srv, 0)
+    emit({"phase": "arch_full_width", "routing": {
+        f"lam={lam} engine={e}": r for (lam, e), r in routed.items()},
+        "tok_per_s": {r["path"]: r["tok_per_s"] for r in rows},
+        "phi_decode_step_ms": prof["step_ms_bare"],
+        "phi_weights_read_bound_ms": prof["weights_read_bound_ms"]})
+    return rows
+
+
+def arch_kimi_hd112(torch, dev) -> list:
+    """kimi-k2 at full width (d 7168, 64/8 heads, head dim 112, 384
+    experts top-8, vocab 163840) cut to 1 of its 61 layers (33.8 GB of
+    experts), behind a one-model MLP router: PROMPTS through the paged
+    engine, and 4 of them per call. Its attention is the decode kernels at
+    hd 112 and g 8, the padded build: the counters show #3 on the engine
+    path and #2 on the per-call path. Then its decode step against its
+    weight-read bound."""
+    from repro_torch import routers
+    from repro_torch.config import RouterConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.gateway import RoutedServer, make_pool_model
+    gen = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    cfg = _cut(get_config("kimi-k2-1t-a32b"), 1)
+    pool = [make_pool_model(cfg.name, cfg, 1.0, gen=gen, device=dev)]
+    router = routers.make("mlp", RouterConfig(num_models=1)).init(gen,
+                                                                  device=dev)
+    srv = RoutedServer(pool, router, device=dev)
+    torch.cuda.synchronize()
+    _arch_pool_row(torch, dev, pool, t0)
+    for kw in ({}, {"engine": False}):         # warm-up, uncounted
+        check_result(srv.generate(PROMPTS[:2], max_new_tokens=MAX_NEW, **kw),
+                     pool, 2)
+    UA, PA, RU = "decode_attention", "paged_decode_attention", "router_utility"
+    others = ("kmeans_assign", "kmeans_assign_reduce", "flash_attention")
+
+    def gen_fn(prompts, **kw):
+        def fn():
+            out = srv.generate(prompts, max_new_tokens=MAX_NEW, **kw)
+            return check_result(out, pool, len(prompts))
+        return fn
+
+    rows = [run_path(torch, ops, "kimi-k2 hd 112 generate (engine)",
+                     gen_fn(PROMPTS), {RU: 1, PA: None}, (UA,) + others),
+            run_path(torch, ops, "kimi-k2 hd 112 generate engine=False",
+                     gen_fn(PROMPTS[:4], engine=False), {RU: 1, UA: None},
+                     (PA,) + others)]
+    prof = profile_moe_decode(torch, srv, 0)
+    emit({"phase": "arch_kimi_hd112", "hd": cfg.head_dim, "g": cfg.q_per_kv,
+          "launches": {r["path"]: r["launches"] for r in rows},
+          "tok_per_s": {r["path"]: r["tok_per_s"] for r in rows},
+          "decode_step_ms": prof["step_ms_bare"],
+          "weights_read_bound_ms": prof["weights_read_bound_ms"]})
+    return rows
+
+
+REDUCED_ARCHS = ("jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
+                 "kimi-k2-1t-a32b", "mamba2-370m", "internvl2-2b")
+
+
+def _token_by_token(torch, mdl, pm, toks, max_new: int):
+    """Greedy tokens of feeding the prompt one token at a time from an
+    empty contiguous cache, then continuing: (B, max_new) int32."""
+    B, S = toks.shape
+    cache = mdl.init_decode_cache(pm.cfg, B, S + max_new,
+                                  device=toks.device)
+    tok, out = toks[:, :1], []
+    for t in range(S + max_new - 1):
+        logits, cache = mdl.decode_step(pm.params, cache, pm.cfg, tokens=tok,
+                                        pos=t)
+        nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        if t >= S - 1:
+            out.append(nxt[:, 0])
+        tok = toks[:, t + 1:t + 2] if t + 1 < S else nxt
+    return torch.stack(out, dim=1)
+
+
+def arch_reduced_f32(torch, dev) -> list:
+    """Reduced f32 jamba, phi-3.5-MoE, kimi-k2, mamba2-370m and
+    internvl2-2b on the card, and hubert's forward: the attention archs'
+    engine tokens equal their per-request tokens; the SSM and hybrid
+    per-call tokens at prompts of 1 to 5 tokens equal token-by-token
+    decode from an empty cache, and the hybrid's attention layer runs #2;
+    hubert's logits are finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.gateway import RoutedServer, make_pool_model
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pool = [make_pool_model(a, get_config(a).reduced(), 0.1, gen=gen,
+                            device=dev) for a in REDUCED_ARCHS]
+    eng = ServeEngine(pool, device=dev)
+    hub_cfg = get_config("hubert-xlarge").reduced()
+    hub = mdl.init_params(gen, hub_cfg, device=dev)
+    UA, PA = "decode_attention", "paged_decode_attention"
+    res = {}
+
+    def fn():
+        n = 0
+        for m, pm in enumerate(pool):
+            if pm.cfg.arch_type in ("ssm", "hybrid"):
+                before = ops.launch_counts()[UA]
+                for S in range(1, 6):
+                    toks = torch.randint(1, pm.cfg.vocab, (2, S),
+                                         generator=gen, device=dev).int()
+                    got = RoutedServer._serve_batch(pm, toks.cpu().numpy(),
+                                                    MAX_NEW)
+                    want = _token_by_token(torch, mdl, pm, toks, MAX_NEW)
+                    if (got != want.cpu().numpy()).any():
+                        raise AssertionError(f"{pm.name} S={S}: per-call "
+                                             "tokens differ from token-by-"
+                                             "token decode")
+                    n += got.size
+                hyb = ops.launch_counts()[UA] - before
+                if (pm.cfg.arch_type == "hybrid") != (hyb > 0):
+                    raise AssertionError(f"{pm.name}: {hyb} launches of "
+                                         f"{UA}")
+                res[pm.name] = {"per_call_equals_token_by_token": True,
+                                "prompt_lens": [1, 2, 3, 4, 5],
+                                UA: hyb}
+                continue
+            toks = [RoutedServer._tokenize([p], pm.cfg, None)[0]
+                    for p in PROMPTS]
+            rids = [eng.submit(m, t, MAX_NEW) for t in toks]
+            done = eng.drain(rids)
+            for t, r in zip(toks, rids):
+                solo = RoutedServer._serve_batch(pm, t[None], MAX_NEW)[0]
+                if list(done[r]) != list(solo):
+                    raise AssertionError(f"{pm.name}: engine {done[r]} vs "
+                                         f"per-request {solo}")
+                n += len(solo)
+            res[pm.name] = {"engine_equals_per_request": True,
+                            "prompts": len(PROMPTS)}
+        emb = torch.randn((2, 24, hub_cfg.d_model), generator=gen, device=dev)
+        logits, _ = mdl.forward(hub, hub_cfg, embeds=emb)
+        if logits.shape != (2, 24, hub_cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("hubert: bad logits")
+        res[hub_cfg.name] = {"logits": list(logits.shape), "finite": True}
+        return n
+
+    row = run_path(torch, ops, "arch reduced f32", fn, {UA: None, PA: None},
+                   ("router_utility", "kmeans_assign", "kmeans_assign_reduce",
+                    "flash_attention"))
+    emit({"phase": "arch_reduced_f32", "models": res})
+    return [row]
+
+
 def main() -> None:
     try:
         import torch
@@ -2289,6 +2577,14 @@ def main() -> None:
     paths.append(resilience_replay(torch, dev))
     paths += spec_reduced_f32(torch, dev)
     emit({"phase": "reduced_done", "seconds": time.perf_counter() - t0})
+    # the full-width MoE loads (~42 and ~39 GB) one at a time, each in a
+    # cache emptied of every earlier phase's blocks
+    t0 = time.perf_counter()
+    for phase in (arch_full_width, arch_kimi_hd112):
+        torch.cuda.empty_cache()
+        paths += phase(torch, dev)
+    paths += arch_reduced_f32(torch, dev)
+    emit({"phase": "arch_done", "seconds": time.perf_counter() - t0})
 
     for r in rows:
         by_path = {p["path"]: p["launches"][r["name"]] for p in paths}

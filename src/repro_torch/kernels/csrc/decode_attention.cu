@@ -53,9 +53,9 @@
 //    wgmma, whose 64-row M would waste 7/8 of the tile at g <= 8, is not
 //    used.
 // 4. f32 caches, and bf16 q over an f32 cache, stay on the CUDA cores in
-//    f32: TF32 would round the inputs. A warp reads 2
-//    positions per 16-byte load at hd 64 (1 at hd 128); the g row dots of
-//    a position are summed over its lanes by one reduce-scatter butterfly
+//    f32: TF32 would round the inputs. A warp reads 2 positions per
+//    16-byte load at padded width 64 (1 at 128); the g row dots of a
+//    position are summed over its lanes by one reduce-scatter butterfly
 //    (8 shuffles for 8 rows, not 8 x 4).
 //
 // Choices, each measured on the card against its alternatives when the
@@ -68,6 +68,16 @@
 // timed ones by ~9%), 16 or 4 positions a warp were slower, the tensor
 // cores save ~1.3 us of chunk kernel and the overlapped merge about 1 us a
 // call.
+//
+// Head dims. The routine is compiled for two padded widths, HDP = 64 and
+// 128, and takes the true head dim hd (a multiple of 16, 16 <= hd <= HDP) at
+// run time: hd is the row stride of q, of the caches and of the output, and
+// every load of a column at or past hd is predicated to zero, so the padded
+// q.k terms are exactly 0 and the padded p.v columns are never written. A
+// 16-byte load covers 4 f32 or 8 bf16 columns, and hd is a multiple of 16,
+// so a load is either wholly inside the row or wholly past it, and every
+// row starts on a 16-byte boundary (a bf16 row of 112 is 224 bytes). The
+// scale is the caller's hd^-0.5. The workspace keeps the padded stride.
 //
 // Contracts. The chunking, the order of every sum inside a chunk and the
 // merge order depend only on logical positions and n_valid, never on S,
@@ -170,25 +180,25 @@ struct PagedAddr {
   }
 };
 
-// The partials of one (b, h, chunk) in the workspace: acc (g, HD), then
+// The partials of one (b, h, chunk) in the workspace: acc (g, HDP), then
 // m (g), then l (g), all f32.
-template <int HD>
+template <int HDP>
 __device__ __forceinline__ size_t ws_offset(int b, int h, int c, int Hkv,
                                             int nch, int g) {
-  return (((size_t)b * Hkv + h) * nch + c) * (size_t)g * (HD + 2);
+  return (((size_t)b * Hkv + h) * nch + c) * (size_t)g * (HDP + 2);
 }
 
 // The block's partials from its warps' (m, l, acc) in shared memory: the
 // warps' sums in warp order.
-template <int HD>
-__device__ __forceinline__ void write_partials(const float (&s_m)[kWarps][kMaxG],
-                                               const float (&s_l)[kWarps][kMaxG],
-                                               const float (&s_acc)[kWarps][kMaxG][HD],
-                                               int g, float* __restrict__ part) {
+template <int HDP>
+__device__ __forceinline__ void write_partials(
+    const float (&s_m)[kWarps][kMaxG], const float (&s_l)[kWarps][kMaxG],
+    const float (&s_acc)[kWarps][kMaxG][HDP], int g,
+    float* __restrict__ part) {
   __syncthreads();
   const int tid = threadIdx.x;
-  for (int i = tid; i < g * HD; i += kThreads) {
-    const int qi = i / HD, d = i % HD;
+  for (int i = tid; i < g * HDP; i += kThreads) {
+    const int qi = i / HDP, d = i % HDP;
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a += s_acc[w][qi][d];
@@ -201,36 +211,37 @@ __device__ __forceinline__ void write_partials(const float (&s_m)[kWarps][kMaxG]
       m = fmaxf(m, s_m[w][tid]);
       ls += s_l[w][tid];
     }
-    part[g * HD + tid] = m;
-    part[g * HD + g + tid] = ls;
+    part[g * HDP + tid] = m;
+    part[g * HDP + g + tid] = ls;
   }
 }
 
 // One (batch row, kv head, chunk) block over an f32 cache, on the CUDA
-// cores: q points at its (g, HD) rows, nvp at the row's n_valid, part at
+// cores: q points at its (g, hd) rows, nvp at the row's n_valid, part at
 // the block's workspace slot; cap is the cache's capacity in positions.
 // Returns at once if the chunk starts at or past n_valid.
-template <typename TQ, int HD, typename Addr>
+template <typename TQ, int HDP, typename Addr>
 __device__ __forceinline__ void decode_chunk(const TQ* __restrict__ q,
                                              const float* __restrict__ kc,
                                              const float* __restrict__ vc,
                                              const Addr addr,
                                              const int* __restrict__ nvp,
-                                             int cap, int g, int c0,
+                                             int cap, int g, int hd, int c0,
                                              float scale,
                                              float* __restrict__ part) {
   // a warp covers its run with 16-byte loads of 4 elements
-  constexpr int kVec = 4, kLanes = HD / kVec;     // lanes per position
+  constexpr int kVec = 4, kLanes = HDP / kVec;    // lanes per position
   constexpr int kPos = 32 / kLanes;               // positions per load
   constexpr int kLoads = kRun / kPos;             // loads per run
   __shared__ float s_p[kWarps][kMaxG][kRun];  // scores, then rounded p
   __shared__ float s_m[kWarps][kMaxG];
   __shared__ float s_l[kWarps][kMaxG];
-  __shared__ float s_acc[kWarps][kMaxG][HD];
+  __shared__ float s_acc[kWarps][kMaxG][HDP];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = lane / kLanes;   // which position of a load
   const int piece = lane % kLanes; // which 16 bytes of the row
+  const bool col = piece * kVec < hd;  // inside the true row
   const int run0 = c0 + warp * kRun;
 
   // 1. the row offsets of the run (the paged kernel's page-table reads)
@@ -248,7 +259,7 @@ __device__ __forceinline__ void decode_chunk(const TQ* __restrict__ q,
   uint4 kr[kLoads], vr[kLoads];
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
-    if (run0 + j * kPos + sub < nv) {
+    if (col && run0 + j * kPos + sub < nv) {
       kr[j] = __ldg(reinterpret_cast<const uint4*>(kc + off[j]) + piece);
       vr[j] = __ldg(reinterpret_cast<const uint4*>(vc + off[j]) + piece);
     } else {
@@ -262,7 +273,7 @@ __device__ __forceinline__ void decode_chunk(const TQ* __restrict__ q,
   for (int qi = 0; qi < kMaxG; ++qi) {
 #pragma unroll
     for (int e = 0; e < kVec; ++e)
-      qf[qi][e] = qi < g ? to_f(q[qi * HD + piece * kVec + e]) : 0.f;
+      qf[qi][e] = (qi < g && col) ? to_f(q[qi * hd + piece * kVec + e]) : 0.f;
   }
 
   // 2. scores: each row's dot over the lane's elements, summed over the
@@ -354,7 +365,7 @@ __device__ __forceinline__ void decode_chunk(const TQ* __restrict__ q,
       }
     }
   }
-  write_partials<HD>(s_m, s_l, s_acc, g, part);
+  write_partials<HDP>(s_m, s_l, s_acc, g, part);
 }
 
 // a, b rounded to bf16 (round to nearest even), a in the low half
@@ -389,18 +400,18 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
 // 16 bytes of K at position r and, per 64 dims, 16 bytes of V at positions
 // 2t and 2t+1; the k (dims) of q.k and the n (dims) of p.v are permuted to
 // match those loads, and q and the output follow the same permutations.
-template <typename TQ, int HD, typename Addr>
+template <typename TQ, int HDP, typename Addr>
 __device__ __forceinline__ void decode_chunk(
     const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const Addr addr,
-    const int* __restrict__ nvp, int cap, int g, int c0, float scale,
+    const int* __restrict__ nvp, int cap, int g, int hd, int c0, float scale,
     float* __restrict__ part) {
   static_assert(kRun == 8, "one 8-column tile of positions a warp");
-  constexpr int kBlocks = HD / 32;  // 16-byte K loads a lane
-  constexpr int kHalves = HD / 64;  // 16-byte V loads a lane and position
+  constexpr int kBlocks = HDP / 32;  // 16-byte K loads a lane
+  constexpr int kHalves = HDP / 64;  // 16-byte V loads a lane and position
   __shared__ float s_m[kWarps][kMaxG];
   __shared__ float s_l[kWarps][kMaxG];
-  __shared__ float s_acc[kWarps][kMaxG][HD];
+  __shared__ float s_acc[kWarps][kMaxG][HDP];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = lane >> 2, t = lane & 3;
@@ -418,13 +429,14 @@ __device__ __forceinline__ void decode_chunk(
   uint4 kr[kBlocks], vr[2][kHalves];
 #pragma unroll
   for (int b = 0; b < kBlocks; ++b)  // dims 32b + 8t .. 32b + 8t + 7
-    kr[b] = sk < nv ? __ldg(reinterpret_cast<const uint4*>(kc + ok) + 4 * b + t)
-                    : zero;
+    kr[b] = (sk < nv && 32 * b + 8 * t < hd)
+                ? __ldg(reinterpret_cast<const uint4*>(kc + ok) + 4 * b + t)
+                : zero;
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int hh = 0; hh < kHalves; ++hh)  // dims 64hh + 8r .. 64hh + 8r + 7
-      vr[j][hh] = sv + j < nv
+      vr[j][hh] = (sv + j < nv && 64 * hh + 8 * r < hd)
                       ? __ldg(reinterpret_cast<const uint4*>(vc + ov[j]) +
                               8 * hh + r)
                       : zero;
@@ -434,8 +446,10 @@ __device__ __forceinline__ void decode_chunk(
   for (int b = 0; b < kBlocks; ++b)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const TQ* qp = q + r * HD + 32 * b + 8 * t + 2 * i;
-      qa[b][i] = r < g ? pack_bf16(to_f(qp[0]), to_f(qp[1])) : 0u;
+      const TQ* qp = q + r * hd + 32 * b + 8 * t + 2 * i;
+      qa[b][i] = (r < g && 32 * b + 8 * t < hd)
+                     ? pack_bf16(to_f(qp[0]), to_f(qp[1]))
+                     : 0u;
     }
 
   // 2. scores: logical k 2t, 2t+1 | 2t+8, 2t+9 of step (b, h) are dims
@@ -493,7 +507,7 @@ __device__ __forceinline__ void decode_chunk(
         s_acc[warp][r][64 * hh + 16 * t + 8 + e] = d[1];
       }
     }
-  write_partials<HD>(s_m, s_l, s_acc, g, part);
+  write_partials<HDP>(s_m, s_l, s_acc, g, part);
 }
 
 // Lets the merge launch start while this grid runs (programmatic dependent
@@ -503,62 +517,66 @@ __device__ __forceinline__ void let_merge_start() {
   asm volatile("griddepcontrol.launch_dependents;");
 }
 
-template <typename TQ, typename TC, int HD>
+template <typename TQ, typename TC, int HDP>
 __global__ void __launch_bounds__(kThreads)
     decode_contig_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
                          const TC* __restrict__ vc,
-                         const int* __restrict__ n_valid, int Hkv, int g, int S,
-                         int nch, float scale, float* __restrict__ ws) {
+                         const int* __restrict__ n_valid, int Hkv, int g,
+                         int hd, int S, int nch, float scale,
+                         float* __restrict__ ws) {
   let_merge_start();
   const int h = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
-  const size_t qoff = ((size_t)b * Hkv + h) * g * HD;
-  const ContigAddr addr{((size_t)b * Hkv + h) * S * HD, HD};
-  decode_chunk<TQ, HD>(q + qoff, kc, vc, addr, n_valid + b, S, g,
-                           c * kChunk, scale,
-                           ws + ws_offset<HD>(b, h, c, Hkv, nch, g));
+  const size_t qoff = ((size_t)b * Hkv + h) * g * hd;
+  const ContigAddr addr{((size_t)b * Hkv + h) * S * hd, hd};
+  decode_chunk<TQ, HDP>(q + qoff, kc, vc, addr, n_valid + b, S, g, hd,
+                        c * kChunk, scale,
+                        ws + ws_offset<HDP>(b, h, c, Hkv, nch, g));
 }
 
-template <typename TQ, typename TC, int HD>
+template <typename TQ, typename TC, int HDP>
 __global__ void __launch_bounds__(kThreads)
     decode_paged_kernel(const TQ* __restrict__ q, const TC* __restrict__ kp,
                         const TC* __restrict__ vp,
                         const int* __restrict__ page_table,
-                        const int* __restrict__ n_valid, int Hkv, int g, int ps,
-                        int npg, int nch, float scale, float* __restrict__ ws) {
+                        const int* __restrict__ n_valid, int Hkv, int g, int hd,
+                        int ps, int npg, int nch, float scale,
+                        float* __restrict__ ws) {
   let_merge_start();
   const int h = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
-  const size_t qoff = ((size_t)b * Hkv + h) * g * HD;
-  const PagedAddr addr{page_table + (size_t)b * npg, Hkv, h, ps, HD};
-  decode_chunk<TQ, HD>(q + qoff, kp, vp, addr, n_valid + b, npg * ps, g,
-                           c * kChunk, scale,
-                           ws + ws_offset<HD>(b, h, c, Hkv, nch, g));
+  const size_t qoff = ((size_t)b * Hkv + h) * g * hd;
+  const PagedAddr addr{page_table + (size_t)b * npg, Hkv, h, ps, hd};
+  decode_chunk<TQ, HDP>(q + qoff, kp, vp, addr, n_valid + b, npg * ps, g, hd,
+                        c * kChunk, scale,
+                        ws + ws_offset<HDP>(b, h, c, Hkv, nch, g));
 }
 
 // One (b, h): the chunks' partials merged in chunk order 0 .. n-1 by the
 // online rule (m, l, a) <- (m', l e + l_c e_c, a e + acc_c e_c) with
 // m' = max(m, m_c), e = exp(m - m'), e_c = exp(m_c - m'), in one pass, so
 // that the loads of several chunks are in flight at once; then
-// out = a / max(l, 1e-30). A row with no valid position has no chunk and
-// writes 0.
-template <typename TQ, int HD>
+// out = a / max(l, 1e-30), the hd true columns of each row. A row with no
+// valid position has no chunk and writes 0.
+template <typename TQ, int HDP>
 __global__ void __launch_bounds__(kMergeThreads)
     decode_merge_kernel(const float* __restrict__ ws,
-                        const int* __restrict__ n_valid, int Hkv, int g,
+                        const int* __restrict__ n_valid, int Hkv, int g, int hd,
                         int cap, int nch, TQ* __restrict__ out) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int nv = max(0, min(n_valid[b], cap));
   const int n = (nv + kChunk - 1) / kChunk;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the partials are in
-  const size_t stride = (size_t)g * (HD + 2);
-  const float* w0 = ws + ws_offset<HD>(b, h, 0, Hkv, nch, g);
-  TQ* o = out + ((size_t)b * Hkv + h) * g * HD;
-  for (int i = threadIdx.x; i < g * HD; i += kMergeThreads) {
-    const float* wm = w0 + g * HD + i / HD;  // m_c of this row; l_c at +g
+  const size_t stride = (size_t)g * (HDP + 2);
+  const float* w0 = ws + ws_offset<HDP>(b, h, 0, Hkv, nch, g);
+  TQ* o = out + ((size_t)b * Hkv + h) * g * hd;
+  for (int i = threadIdx.x; i < g * hd; i += kMergeThreads) {
+    const int qi = i / hd;
+    const float* wm = w0 + g * HDP + qi;  // m_c of this row; l_c at +g
+    const float* wa = w0 + qi * HDP + (i - qi * hd);
     float m = -INFINITY, l = 0.f, a = 0.f;
 #pragma unroll 4
     for (int c = 0; c < n; ++c) {
       const float mc = wm[c * stride], lc = wm[c * stride + g];
-      const float ac = w0[c * stride + i];
+      const float ac = wa[c * stride];
       const float mn = fmaxf(m, mc);  // finite: every chunk below n has data
       const float e = expf(m - mn), ec = expf(mc - mn);
       l = l * e + lc * ec;
@@ -573,10 +591,10 @@ __global__ void __launch_bounds__(kMergeThreads)
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
-template <typename TQ, typename TC, int HD>
+template <typename TQ, typename TC, int HDP>
 int launch(bool paged, const void* q, const void* k, const void* v,
            const void* page_table, const void* n_valid, int B, int Hkv, int g,
-           int S_or_ps, int npg, float scale, void* ws, void* out,
+           int hd, int S_or_ps, int npg, float scale, void* ws, void* out,
            cudaStream_t stream) {
   const int cap = paged ? S_or_ps * npg : S_or_ps;
   const int nch = (cap + kChunk - 1) / kChunk;
@@ -584,16 +602,16 @@ int launch(bool paged, const void* q, const void* k, const void* v,
   if (nch > 0) {
     const dim3 grid(Hkv, B, nch);
     if (paged) {
-      decode_paged_kernel<TQ, TC, HD><<<grid, kThreads, 0, stream>>>(
+      decode_paged_kernel<TQ, TC, HDP><<<grid, kThreads, 0, stream>>>(
           static_cast<const TQ*>(q), static_cast<const TC*>(k),
           static_cast<const TC*>(v), static_cast<const int*>(page_table),
-          static_cast<const int*>(n_valid), Hkv, g, S_or_ps, npg, nch, scale,
-          w);
+          static_cast<const int*>(n_valid), Hkv, g, hd, S_or_ps, npg, nch,
+          scale, w);
     } else {
-      decode_contig_kernel<TQ, TC, HD><<<grid, kThreads, 0, stream>>>(
+      decode_contig_kernel<TQ, TC, HDP><<<grid, kThreads, 0, stream>>>(
           static_cast<const TQ*>(q), static_cast<const TC*>(k),
           static_cast<const TC*>(v), static_cast<const int*>(n_valid), Hkv, g,
-          S_or_ps, nch, scale, w);
+          hd, S_or_ps, nch, scale, w);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -608,8 +626,8 @@ int launch(bool paged, const void* q, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_merge_kernel<TQ, HD>, static_cast<const float*>(w),
-      static_cast<const int*>(n_valid), Hkv, g, cap, nch,
+      &cfg, decode_merge_kernel<TQ, HDP>, static_cast<const float*>(w),
+      static_cast<const int*>(n_valid), Hkv, g, hd, cap, nch,
       static_cast<TQ*>(out));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -619,13 +637,14 @@ template <typename TQ, typename TC>
 int launch_hd(int hd, bool paged, const void* q, const void* k, const void* v,
               const void* pt, const void* nv, int B, int Hkv, int g, int S_or_ps,
               int npg, float scale, void* ws, void* out, cudaStream_t st) {
-  if (hd == 64)
-    return launch<TQ, TC, 64>(paged, q, k, v, pt, nv, B, Hkv, g, S_or_ps, npg,
-                              scale, ws, out, st);
-  if (hd == 128)
-    return launch<TQ, TC, 128>(paged, q, k, v, pt, nv, B, Hkv, g, S_or_ps, npg,
-                               scale, ws, out, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  // the padded width: the kernel's lane mapping needs 64 or 128
+  if (hd < 16 || hd > 128 || hd % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 64)
+    return launch<TQ, TC, 64>(paged, q, k, v, pt, nv, B, Hkv, g, hd, S_or_ps,
+                              npg, scale, ws, out, st);
+  return launch<TQ, TC, 128>(paged, q, k, v, pt, nv, B, Hkv, g, hd, S_or_ps,
+                             npg, scale, ws, out, st);
 }
 
 int dispatch(int q_dtype, int c_dtype, int hd, bool paged, const void* q,
@@ -662,7 +681,8 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // Positions per block: the caller sizes the workspace as
-// (B, Hkv, ceil(capacity / chunk), g, hd + 2) f32.
+// (B, Hkv, ceil(capacity / chunk), g, hdp + 2) f32, hdp the padded head dim
+// (64 for hd <= 64, else 128).
 int decode_attention_chunk(void) { return kChunk; }
 
 // q (B, Hkv, g, hd); k, v (B, Hkv, S, hd), 16-byte aligned; n_valid (B,)

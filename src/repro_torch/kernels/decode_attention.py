@@ -20,6 +20,11 @@ cache both products run on the tensor cores (bf16 in, f32 sums). So the two
 differ in the order of f32 sums and in which maximum each probability is
 rounded against (see ``chip_smoke.py`` for the bound that follows);
 ``decode_split_emulation`` is the kernel's arithmetic in plain PyTorch.
+
+The kernels take every head dim that is a multiple of 16 from 16 to 128:
+they are compiled for the padded widths 64 and 128, take the true head dim
+at run time and read no column past it. Any other head dim, and more than
+8 query rows per kv head, raises (no config in the repo needs more).
 """
 from __future__ import annotations
 
@@ -37,8 +42,13 @@ from repro_torch.kernels.ref import paged_gather_ref
 COUNTS = {"decode_attention": 0, "paged_decode_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = tuple(range(16, 129, 16))
 _MAX_G = 8
+
+
+def _padded(hd: int) -> int:
+    """The width the kernel is compiled for: 64, or 128 above 64."""
+    return 64 if hd <= 64 else 128
 
 
 def _n_valid_vec(n_valid, B: int, device) -> torch.Tensor:
@@ -156,7 +166,8 @@ def _check_common(q, k, v, what: str, page_table=None):
         raise ValueError(f"{what}: q is {tuple(q.shape)} but the cache is "
                          f"{tuple(k.shape)}")
     if hd not in _HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {hd} not in {_HEAD_DIMS}")
+        raise ValueError(f"{what}: head dim {hd}; the kernel takes a "
+                         "multiple of 16 from 16 to 128")
     if not 1 <= g <= _MAX_G:
         raise ValueError(f"{what}: {g} query rows per kv head; the kernel "
                          f"takes 1..{_MAX_G}")
@@ -209,10 +220,11 @@ def _bound() -> _Bound:
 
 def _workspace(B: int, Hkv: int, g: int, hd: int, cap: int, chunk: int,
                device) -> torch.Tensor:
-    """f32 partials (m, l, acc) of every (row, kv head, chunk)."""
+    """f32 partials (m, l, acc) of every (row, kv head, chunk), at the
+    padded head dim."""
     n_chunks = -(-cap // chunk)
-    return torch.empty(B * Hkv * n_chunks * g * (hd + 2), dtype=torch.float32,
-                       device=device)
+    return torch.empty(B * Hkv * n_chunks * g * (_padded(hd) + 2),
+                       dtype=torch.float32, device=device)
 
 
 def decode_attention_cuda(q, k_cache, v_cache, n_valid):

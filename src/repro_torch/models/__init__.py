@@ -1,4 +1,6 @@
 from repro_torch.models.model import (  # noqa: F401
+    active_param_count,
+    block_pattern,
     decode_step,
     decode_step_paged,
     forward,

@@ -42,6 +42,20 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)  # jnp.var
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -67,13 +81,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU) and embedding
+# MLP (SwiGLU for decoder archs, GELU for the encoder-only audio arch) and
+# embedding
 # ---------------------------------------------------------------------------
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     dt = dtype_of(cfg)
+    if cfg.encoder_only:  # GELU MLP (hubert / w2v2 style)
+        return {
+            "wi": normal(gen, (d, f), d ** -0.5, dt),
+            "bi": torch.zeros((f,), dtype=dt, device=gen.device),
+            "wo": normal(gen, (f, d), f ** -0.5, dt),
+            "bo": torch.zeros((d,), dtype=dt, device=gen.device),
+        }
     return {
         "wg": normal(gen, (d, f), d ** -0.5, dt),
         "wu": normal(gen, (d, f), d ** -0.5, dt),
@@ -82,6 +104,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if "wi" in p:  # GELU; jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ p["wi"] + p["bi"], approximate="tanh")
+        return h @ p["wo"] + p["bo"]
     g = F.silu(x @ p["wg"])
     return (g * (x @ p["wu"])) @ p["wd"]
 

@@ -45,6 +45,12 @@ kernels, at the same ``n_valid``, as the plain step), and the longest
 matching prefix commits with the verify's correction token. Tokens equal
 the non-speculative engine's.
 
+**Architectures.** Dense, MoE and VLM models decode here (MoE layers in
+the dense dispatch, so a token's output does not depend on its batch
+mates). SSM and hybrid models are refused with ``TypeError``, as in the
+reference: their state integrates every position, pad included, so they
+cannot share padded buckets; the gateway serves them per call.
+
 Not ported yet, raising ``NotImplementedError`` (queued in ROADMAP.md):
 the cross-silo ``mesh``.
 """
@@ -215,7 +221,7 @@ def _prefill(cfg: ModelConfig, params, toks: np.ndarray, last_pos,
 
 
 class ServeEngine:
-    """Admission queue + KV pools over a model pool (dense archs).
+    """Admission queue + KV pools over a model pool (attention archs).
 
     ``submit`` enqueues, ``step`` admits + decodes one chunk per lane,
     ``drain`` steps until idle and returns {request id: result}. Runs on
@@ -369,9 +375,11 @@ class ServeEngine:
         (speculative mode only) picks this request's drafter by pool
         index."""
         pm = self.pool[int(model_idx)]
-        if pm.cfg.arch_type != "dense":
-            raise NotImplementedError(f"{pm.cfg.name}: only dense archs are "
-                                      "ported to the PyTorch engine")
+        if pm.cfg.arch_type in ("ssm", "hybrid"):
+            raise TypeError(
+                f"{pm.cfg.name}: SSM/hybrid archs integrate state over pad "
+                "positions and can't share right-padded slot buckets — use "
+                "RoutedServer.generate (it serves them per call)")
         toks = np.asarray(toks, np.int32).reshape(-1)
         if not self.fits(len(toks), max_new):
             raise ValueError(

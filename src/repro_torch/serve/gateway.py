@@ -9,7 +9,9 @@ KV pool per model, same-bucket admissions coalesced into one prefill, and
 every in-flight request decoded together in chunks. ``generate(
 engine=False)`` keeps the per-call path: each model's prompts padded into
 one (B, S) batch and decoded against a contiguous cache (the
-``decode_attention`` kernel on CUDA).
+``decode_attention`` kernel on CUDA). SSM and hybrid models always take
+the per-call path, their prompts unpadded in S: their state integrates
+every position, so they cannot share the engine's padded buckets.
 
 Batch sizes and prompt lengths are bucketed to powers of two, as in the
 reference, so the same requests see the same shapes on both paths.
@@ -233,6 +235,7 @@ class RoutedServer:
         prompts are padded to one (B, S) batch and decoded together.
         scan_decode=False (with engine=False) further drops the pow2
         bucketing of (B, S, max_new) — same tokens, kept for comparison.
+        SSM/hybrid models always take the per-call path.
         """
         choice = self.route(prompts, lam)
         results = [None] * len(prompts)
@@ -241,7 +244,8 @@ class RoutedServer:
         for m_idx in np.unique(choice):
             pm = self.pool[int(m_idx)]
             idx = np.where(choice == m_idx)[0]
-            if engine and scan_decode:
+            if (engine and scan_decode
+                    and pm.cfg.arch_type not in ("ssm", "hybrid")):
                 for i in idx:
                     toks_i = self._tokenize([prompts[i]], pm.cfg, tokenize)[0]
                     if not self.engine.fits(len(toks_i), max_new_tokens):
@@ -288,12 +292,16 @@ class RoutedServer:
         """Prefill + greedy decode of one (B, S) prompt batch against a
         contiguous cache. ``scan_decode`` buckets (B, S, max_new) to powers
         of two, decoding to the bucket length and slicing (greedy decode is
-        prefix-stable). The tokens stay on the device until the end."""
+        prefix-stable); SSM/hybrid prompts stay unpadded in S, since their
+        state integrates every prefill position (shorter prompts of a group
+        still integrate its right padding, as in the reference). The tokens
+        stay on the device until the end."""
         cfg, params = pm.cfg, pm.params
         dev = mdl.params_device(params)
         B, S = toks.shape
         if scan_decode:
-            B_b, S_b, T = next_pow2(B), next_pow2(S), next_pow2(max_new)
+            B_b, T = next_pow2(B), next_pow2(max_new)
+            S_b = S if cfg.arch_type in ("ssm", "hybrid") else next_pow2(S)
             toks_p = np.zeros((B_b, S_b), np.int32)
             toks_p[:B, :S] = toks
             last = S - 1

@@ -30,12 +30,14 @@ import torch.nn.functional as F
 
 
 def extend_cache(cache, new_len: int):
-    """Pad the seq dim (dim 3 of the stacked (L, B, Hkv, S, hd) leaves) of
-    a prefill cache up to ``new_len`` — used to continue decoding."""
-    def leaf(a):
-        pad = new_len - a.shape[3]
+    """Pad the seq dim of the attention leaves (``k``/``v``, dim 3 of the
+    stacked (L, B, Hkv, S, hd) layout) of a prefill cache up to
+    ``new_len`` — used to continue decoding. SSM leaves (``conv``,
+    ``state``) are not positional and pass through unchanged."""
+    def leaf(name, a):
+        pad = new_len - a.shape[3] if name in ("k", "v") else 0
         return F.pad(a, (0, 0, 0, pad)) if pad > 0 else a
-    return {name: {k: leaf(v) for k, v in layer.items()}
+    return {name: {k: leaf(k, v) for k, v in layer.items()}
             for name, layer in cache.items()}
 
 

@@ -9,7 +9,10 @@ ulps of the reference value plus (2^-8 + 1e-5)·A, A the attention of the
 same query over |v| (the bound on rounding each probability to bf16
 against its chunk's maximum instead of the row's); f32 outputs to 1e-5 +
 1e-5·|ref|. The kernel's chunk size, 32, and the two it was measured
-against, 64 and 128, are checked. The wrappers' refusals are checked without building anything.
+against, 64 and 128, are checked. The head dims the kernels run padded
+(80 as hubert's and 112 as kimi-k2's, both through the width-128 build)
+are checked at the kernel's chunk size. The wrappers' refusals are checked
+without building anything.
 """
 import functools
 import importlib.util
@@ -55,12 +58,12 @@ def _n_valid(case: str, rng) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _case(case: str, dtype: str = "bfloat16", s: int = S):
+def _case(case: str, dtype: str = "bfloat16", s: int = S, hd: int = HD):
     """(q, k, v, n_valid) as torch tensors, the port's plain result, the
     scale A for the tolerance (bf16 caches) and the Pallas result."""
     rng = np.random.default_rng(("full", "ragged", "zeros").index(case))
     arrs = [_both(rng.standard_normal(shape).astype(np.float32), dtype)
-            for shape in ((B, HKV, G, HD), (B, HKV, s, HD), (B, HKV, s, HD))]
+            for shape in ((B, HKV, G, hd), (B, HKV, s, hd), (B, HKV, s, hd))]
     nv = np.minimum(_n_valid(case, rng), s)
     (qj, q), (kj, k), (vj, v) = arrs
     nvt = torch.from_numpy(nv)
@@ -100,6 +103,23 @@ def test_split_emulation_f32_within_chip_tolerance(chunk):
                            f"f32 C={chunk} vs Pallas")
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [80, 112])
+def test_split_emulation_at_padded_head_dims(hd, dtype):
+    """hd 80 and 112 at the kernel's chunk size, S 1024 with rows at
+    n_valid 0: within chip_smoke's tolerance of the plain version and of
+    the Pallas kernel; the scale is the true hd^-0.5."""
+    args, plain, scale, pallas = _case("zeros", dtype, 1024, hd)
+    got = tda.decode_split_emulation(*args, chunk=32)
+    assert got.shape == (B, HKV, G, hd)
+    chip_smoke.check_close(torch, got, plain, f"hd {hd} {dtype} vs plain",
+                           scale)
+    chip_smoke.check_close(torch, got, torch.from_numpy(pallas).to(got.dtype),
+                           f"hd {hd} {dtype} vs Pallas", scale)
+    nv = args[3]
+    assert torch.equal(got[nv == 0], torch.zeros_like(got[nv == 0]))
+
+
 def _paged_copy(k, v, nv, ps: int, npg: int, rng):
     """The first npg*ps logical positions of each row in shuffled pages of
     a pool; pages past a row's bound, and page 0 (the trash page), are NaN,
@@ -128,7 +148,18 @@ def test_paged_split_emulation_equals_contiguous_bitwise(chunk, ps, npg):
     """The paged emulation equals the contiguous one bit for bit on the same
     logical contents, whatever S, npg and the page order, with NaN in every
     position that must not be read."""
-    (q, k, v, nv), _, _, _ = _case("zeros")
+    _paged_equals_contiguous(_case("zeros")[0], chunk, ps, npg)
+
+
+def test_paged_split_emulation_equals_contiguous_bitwise_at_hd_112():
+    """The same at kimi-k2's head dim and the kernel's chunk size."""
+    _paged_equals_contiguous(_case("zeros", "bfloat16", 1024, 112)[0], 32,
+                             16, 64)
+
+
+def _paged_equals_contiguous(args, chunk, ps, npg):
+    q, k, v, nv = args
+    S = k.shape[2]
     rng = np.random.default_rng(chunk + npg)
     nv = torch.minimum(nv, torch.tensor(npg * ps, dtype=torch.int32))
     (kp, vp), pt = _paged_copy(k, v, nv, ps, npg, rng)
@@ -146,22 +177,27 @@ def _refused(fn, match: str):
         fn()
 
 
-@pytest.mark.parametrize("bad", ["hd96", "g9", "kv_dtypes", "noncontig",
-                                 "unaligned", "page_table", "f16"])
+@pytest.mark.parametrize("bad", ["hd96", "hd72", "hd136", "g9", "kv_dtypes",
+                                 "noncontig", "unaligned", "page_table",
+                                 "f16"])
 def test_decode_wrappers_refuse_bad_inputs_without_building(bad):
     """Every input the kernels do not take raises before anything is built
     or launched (checked on CPU tensors: shape, dtype, layout and alignment
-    come before the device)."""
+    come before the device). The head dim must be a multiple of 16 from 16
+    to 128: 72 and 136 are refused for it; 96 passes that check and is
+    refused only for lying on the CPU."""
     q = torch.zeros((2, 1, 4, 64))
     k = torch.zeros((2, 1, 32, 64))
     v = torch.zeros((2, 1, 32, 64))
     pt = torch.zeros((2, 2), dtype=torch.int32)
-    match = {"hd96": "head dim", "g9": "query rows", "kv_dtypes": "share",
+    match = {"hd96": "needs CUDA", "hd72": "head dim", "hd136": "head dim",
+             "g9": "query rows", "kv_dtypes": "share",
              "noncontig": "contiguous", "unaligned": "16-byte",
              "page_table": "page_table", "f16": "dtypes"}[bad]
-    if bad == "hd96":
-        q = torch.zeros((2, 1, 4, 96))
-        k, v = torch.zeros((2, 1, 32, 96)), torch.zeros((2, 1, 32, 96))
+    if bad.startswith("hd"):
+        hd = int(bad[2:])
+        q = torch.zeros((2, 1, 4, hd))
+        k, v = torch.zeros((2, 1, 32, hd)), torch.zeros((2, 1, 32, hd))
     elif bad == "g9":
         q = torch.zeros((2, 1, 9, 64))
     elif bad == "kv_dtypes":

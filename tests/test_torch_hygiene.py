@@ -58,17 +58,22 @@ def test_port_has_every_slice_module():
             "core/elo_router.py", "routers/elo.py",
             "core/personalization.py", "core/secure_agg.py",
             # slice 7: the whole serving engine and qk-norm (qwen3-8b)
-            "configs/qwen3_8b.py"]
+            "configs/qwen3_8b.py",
+            # slice 8: MoE, SSM, hybrid, VLM and audio architectures
+            "models/moe.py", "models/ssm.py"]
     pkg = ROOT / "src" / "repro_torch"
     assert [w for w in want if not (pkg / w).is_file()] == []
-    # slice 7 grew modules that slice 1 began: what each must now define
+    # slices 7 and 8 grew modules that slice 1 began: what each must now
+    # define
     defs = {"serve/kv_cache.py": ["alloc_draft_pool", "grow", "held"],
             "models/attention.py": ["_masked_grouped_attn_multi",
                                     "attn_decode_verify",
                                     "attn_decode_verify_paged",
                                     "verify_attention",
                                     "verify_attention_paged"],
-            "models/model.py": ["decode_verify", "decode_verify_paged"],
+            "models/model.py": ["decode_verify", "decode_verify_paged",
+                                "block_pattern", "active_param_count"],
+            "models/layers.py": ["init_layernorm", "layernorm"],
             "serve/engine.py": ["Outcome", "cancel", "status", "counters",
                                 "_expire", "_preempt", "_grow_for_chunk",
                                 "_admit_draft", "_decode_spec_round"],

@@ -311,7 +311,19 @@ def test_bf16_weights_convert_bit_for_bit():
 
 
 def test_unported_architectures_raise():
+    """Every arch initializes now (tests/test_torch_archs.py holds them
+    against the reference); what stays unported raises: the MoE's
+    expert-parallel dispatch on a mesh. SSM state has no pages, so the
+    paged pool refuses SSM and hybrid archs, as the reference does."""
+    from repro_torch.models import moe
     for arch in ("phi3.5-moe-42b-a6.6b", "mamba2-370m"):
         cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError):
-            mdl.init_params(0, cfg, device="cpu")
+        params = mdl.init_params(0, cfg, device="cpu")
+        if cfg.moe is not None:
+            with pytest.raises(NotImplementedError, match="mesh"):
+                moe._capacity_shard_map(params["blocks"]["l0"]["ffn"],
+                                        torch.zeros((2, cfg.d_model)), cfg,
+                                        1.25)
+        else:
+            with pytest.raises(TypeError, match="paged"):
+                mdl.init_paged_cache(cfg, 4, 8, device="cpu")
