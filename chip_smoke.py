@@ -36,6 +36,21 @@ each path and read just after it:
   secure aggregation; then one FedAvg round and one K-means fit under
   ``torch.profiler``.
 
+While the full-width pool is loaded, the federation side of the online
+loop: 64 requests of 4 clients harvested through ``RoutedServer(harvest=
+...)`` behind a fitted MLP router (one expiry recorded as a zero score, one
+cancel recorded as nothing, the store equal to a host-side copy), the MLP
+router refitted from the harvest with the trimmed mean and hot-swapped in
+(routing = the refit's own, ``router_utility`` once per route bucket
+before and after), a K-means router fitted on the harvest through both
+K-means kernels, and failover under a ``FaultPlan`` (a hard-down backend
+and a transient one, counts equal to what the plan predicts). After the
+fit path: the corruption table (fedavg, trimmed mean and median, clean and
+under sign flip, at the §1 width; all four strategies under all four
+fault classes at ``bench_resilience``'s own scale, beside
+``BENCH_resilience.json``'s values) and full-width fits with per-round
+cohorts of 5 and 3 clients.
+
 Then the engine under overload and speculative decode: the verify's
 attention at the served shapes of qwen2-1.5b, yi-6b and qwen3-8b (the
 folded paged launch and the T contiguous launches equal to T one-position
@@ -2085,6 +2100,434 @@ def resilience_full_width(torch, dev, pool) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The federation side of the online loop: harvest, failover, robust and
+# cohort fits
+# ---------------------------------------------------------------------------
+
+HARVEST_N = 64          # requests of the harvest phase, over 4 clients
+FED_ROUNDS = 10         # full-width robust and cohort fits (FedConfig: 30)
+REF_ROUNDS = 40         # bench_resilience's own
+
+
+def _score(rid: int, m: int) -> float:
+    """The outcome a client reports for request ``rid`` served by ``m``."""
+    return ((7 * rid + 3 * m) % 10) / 10.0
+
+
+def harvest_full_width(torch, dev, pool) -> tuple:
+    """Harvest at full width: qwen2-1.5b and yi-6b behind ``pool_router``'s
+    MLP router with a ``HarvestStore(768, capacity=64)`` of 4 clients; 64
+    requests at λ 0 and 2 with ``client_id``, one with a deadline that
+    expires and one cancelled, every served one reported. The store must
+    equal a host-side copy of every (x, model, score, cost), the expiry a
+    zero score, the cancel nothing, and each unknown rid must say why.
+    Then the MLP router is refitted from the harvest with the trimmed mean
+    and a K-means router is fitted on it (#4 and #5), the MLP refit is
+    swapped in (route = the refit's own route; #1 once per route bucket
+    before and after) and a state of another shape is refused. Returns
+    (the rows of its runs, the server)."""
+    import numpy as np
+
+    from repro_torch import routers
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.data.synthetic import make_eval_corpus
+    from repro_torch.fed import HarvestStore, TrimmedMeanAggregator
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import CANCELLED, DONE, EXPIRED, Outcome
+    from repro_torch.serve.gateway import RoutedServer
+    RU, PA = "router_utility", "paged_decode_attention"
+    UA, KA, KR, FA = ("decode_attention", "kmeans_assign",
+                      "kmeans_assign_reduce", "flash_attention")
+    t_phase = time.perf_counter()
+    router = pool_router(torch, dev, "mlp")
+    store = HarvestStore(768, capacity=64, clients=range(4), device=dev)
+    srv = RoutedServer(pool, router, harvest=store, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    xs = make_eval_corpus(gen, n_queries=HARVEST_N, n_tasks=8, n_models=2,
+                          d_emb=768)["x"].cpu().numpy()
+    rows, info = [], {}
+
+    def serve():
+        rids = []
+        for i in range(HARVEST_N):
+            rids.append(srv.submit(PROMPTS[i % len(PROMPTS)],
+                                   lam=(0.0, 2.0)[i % 2],
+                                   max_new_tokens=MAX_NEW, client_id=i % 4,
+                                   x=xs[i], deadline=1 if i == 5 else None))
+        routed = {r: srv.routed_model(r) for r in rids}
+        srv.cancel(rids[HARVEST_N - 1])               # still queued
+        done = srv.drain()
+        info.update(rids=rids, routed=routed, done=done)
+        return sum(len(v) for v in done.values()
+                   if not isinstance(v, Outcome))
+
+    rows.append(run_path(torch, ops, "harvest submit x64 + drain", serve,
+                         {RU: HARVEST_N, PA: None}, (UA, KA, KR, FA)))
+    rids, routed = info["rids"], info["routed"]
+    status = {r: srv.status(r) for r in rids}
+    expired, cancelled = rids[5], rids[HARVEST_N - 1]
+    if status[expired] != EXPIRED or status[cancelled] != CANCELLED or any(
+            status[r] != DONE for r in rids if r not in (expired,
+                                                         cancelled)):
+        raise AssertionError(f"harvest: statuses {status}")
+    # the host-side copy, in the order the store records: the expiry while
+    # draining, then the reports
+    want = {c: [] for c in range(4)}
+    cost = {r: pool[routed[r]].cost_per_token * MAX_NEW for r in rids}
+    want[5 % 4].append((xs[5], routed[expired], 0.0, cost[expired]))
+    for i, r in enumerate(rids):
+        if status[r] == DONE:
+            srv.report_outcome(r, _score(r, routed[r]))
+            want[i % 4].append((xs[i], routed[r], _score(r, routed[r]),
+                                cost[r]))
+    for c, recs in want.items():
+        got = store.buffer(c).as_client_data()
+        n = len(recs)
+        if (len(store.buffer(c)) != n
+                or not np.array_equal(got["x"][:n],
+                                      np.stack([r[0] for r in recs]))
+                or got["m"][:n].tolist() != [r[1] for r in recs]
+                or not np.array_equal(got["acc"][:n], np.array(
+                    [r[2] for r in recs], np.float32))
+                or not np.array_equal(got["cost"][:n], np.array(
+                    [r[3] for r in recs], np.float32))):
+            raise AssertionError(f"harvest: client {c}'s buffer differs "
+                                 "from the host-side copy")
+    reasons = {}
+    for name, rid, why in (("reported", rids[0], "already reported"),
+                           ("expired", expired, "EXPIRED past its deadline"),
+                           ("cancelled", cancelled, "cancelled or shed")):
+        try:
+            srv.routed_model(rid)
+            raise AssertionError(f"harvest: rid {rid} ({name}) still "
+                                 "pending")
+        except ValueError as e:
+            if why not in str(e):
+                raise AssertionError(f"harvest: rid {rid} ({name}): {e}")
+            reasons[name] = str(e)
+    served = [routed[r] for r in rids if status[r] == DONE]
+    emit({"phase": "harvest_full_width", "rows": len(store),
+          "rows_per_client": [len(store.buffer(c)) for c in range(4)],
+          "served_by_model": [served.count(m) for m in range(len(pool))],
+          "expiry_failures": srv.expiry_failures, "unknown_rid": reasons})
+
+    # refit from the harvest: the served MLP router with the trimmed mean,
+    # and a K-means router of the same M whose clients hold enough rows
+    data = store.as_federated_data(pad_to=64)
+    fcfg = FedConfig(num_clients=4, participation=1.0)
+    min_rows = int(data["w"].sum(1).min())
+    kcfg = RouterConfig(num_models=len(pool), k_local=min(15, min_rows))
+    seed = lambda s: torch.Generator(device=dev).manual_seed(s)
+    (mlp, _), row = run_fit(torch, ops, "harvest refit mlp trimmed_mean",
+                            lambda: routers.fit_federated(
+                                srv.router, data, fcfg, gen=seed(24),
+                                device=dev, rounds=FED_ROUNDS,
+                                aggregator=TrimmedMeanAggregator()), {})
+    rows.append(row)
+    iters = kcfg.kmeans_iters
+    (km, _), row = run_fit(torch, ops, "harvest refit kmeans",
+                           lambda: routers.fit_federated(
+                               routers.make("kmeans", kcfg), data, fcfg,
+                               gen=seed(25), device=dev),
+                           {KR: 2 * iters, KA: 3},
+                           lambda _: {"k_local": kcfg.k_local})
+    rows.append(row)
+    xt = torch.as_tensor(xs[:16], device=dev)
+    choice, row = run_fit(torch, ops, "harvest kmeans route bucket of 16",
+                          lambda: km.route(xt, 1.0), {KA: 1})
+    rows.append(row)
+    if not ((choice >= 0) & (choice < len(pool))).all():
+        raise AssertionError("harvest: the K-means refit routes outside "
+                             "the pool")
+
+    # the hot swap: one route launch per bucket before and after
+    def route_all():
+        return np.concatenate([srv._route_x(xs[i:i + 16], lam)
+                               for i in range(0, HARVEST_N, 16)
+                               for lam in (0.0, 2.0)])
+    n_buckets = 2 * HARVEST_N // 16
+    before, row = run_fit(torch, ops, "route before swap", route_all,
+                          {RU: n_buckets})
+    rows.append(row)
+    version = srv.router_version
+    srv.swap_router_state(mlp.state)
+    after, row = run_fit(torch, ops, "route after swap", route_all,
+                         {RU: n_buckets})
+    rows.append(row)
+    own = np.concatenate([mlp.route(torch.as_tensor(xs[i:i + 16],
+                                                    device=dev), lam)
+                          .cpu().numpy() for i in range(0, HARVEST_N, 16)
+                          for lam in (0.0, 2.0)])
+    if srv.router_version != version + 1 or not np.array_equal(after, own):
+        raise AssertionError("harvest: the swapped-in state routes other "
+                             "than the refit itself")
+    wrong = routers.make("mlp", RouterConfig(num_models=len(pool),
+                                             hidden=(256,))).init(
+        seed(26), device=dev)
+    try:
+        srv.swap_router_state(wrong.state)
+        raise AssertionError("harvest: a state of another shape was "
+                             "swapped in")
+    except ValueError:
+        pass
+    emit({"phase": "harvest_swap", "router_version": srv.router_version,
+          "routes_changed": int((before != after).sum()),
+          "routes": int(before.size),
+          "seconds": time.perf_counter() - t_phase})
+    return rows, srv
+
+
+def _predict_failover(plan, first: list, max_retries: int) -> tuple:
+    """(served model per submit, backend_failures, retries, failovers) that
+    ``plan.backend_fails`` gives submits routed first to ``first`` on a
+    pool of two models (a failover goes to the other one; None where both
+    fail, which the gateway refuses)."""
+    served, fails, retries, failovers = [], 0, 0, 0
+    for seq, m in enumerate(first):
+        failed, attempt = set(), 0
+        while m is not None and plan.backend_fails(m, seq, attempt):
+            fails += 1
+            if attempt < max_retries:
+                attempt += 1
+                retries += 1
+                continue
+            failed.add(m)
+            if len(failed) == 2:
+                m = None
+            else:
+                m, attempt = 1 - m, 0
+                failovers += 1
+        served.append(m)
+    return served, fails, retries, failovers
+
+
+def failover(torch, dev, pool, router) -> list:
+    """Failover at full width behind the harvest phase's router: with
+    ``FaultPlan(fail_models=(1,))`` every request lands on model 0, and
+    with ``backend_fail=0.3`` (two fresh servers) each run's served models
+    and ``backend_failures`` / ``retries`` / ``failovers`` equal what the
+    plan's ``backend_fails`` predicts, a submit refused because both
+    backends failed included. Returns the rows of its runs."""
+    from repro_torch.data.encoder import encode
+    from repro_torch.fed import FaultPlan, HarvestStore
+    from repro_torch.kernels import ops
+    from repro_torch.serve.gateway import RoutedServer
+    RU, PA = "router_utility", "paged_decode_attention"
+    others = ("decode_attention", "kmeans_assign", "kmeans_assign_reduce",
+              "flash_attention")
+    n = 16
+    subs = [(PROMPTS[i % len(PROMPTS)], (0.0, 2.0)[i % 2]) for i in range(n)]
+    first = [int(router.route(torch.as_tensor(encode([p], 768), device=dev),
+                              lam)[0]) for p, lam in subs]
+    rows, out = [], []
+    for name, plan in (("hard down", FaultPlan(seed=11, fail_models=(1,))),
+                       ("transient run 1", FaultPlan(seed=12,
+                                                     backend_fail=0.3)),
+                       ("transient run 2", FaultPlan(seed=12,
+                                                     backend_fail=0.3))):
+        srv = RoutedServer(pool, router, fault_plan=plan, device=dev,
+                           harvest=HarvestStore(768, clients=range(4),
+                                                device=dev))
+        got = {}
+
+        def fn(srv=srv, got=got):
+            rids = []
+            for i, (p, lam) in enumerate(subs):
+                try:
+                    rids.append(srv.submit(p, lam=lam, max_new_tokens=MAX_NEW,
+                                           client_id=i % 4))
+                except RuntimeError:          # every backend failed
+                    rids.append(None)
+            got["served"] = [None if r is None else srv.routed_model(r)
+                             for r in rids]
+            done = srv.drain([r for r in rids if r is not None])
+            return sum(len(v) for v in done.values())
+
+        row = run_path(torch, ops, f"failover {name}", fn,
+                       {RU: n, PA: None}, others)
+        rows.append(row)
+        counts = (got["served"], srv.backend_failures, srv.retries,
+                  srv.failovers)
+        want = _predict_failover(plan, first, srv.max_retries)
+        out.append({"run": name, "backend_failures": counts[1],
+                    "retries": counts[2], "failovers": counts[3],
+                    "served_by_model": [counts[0].count(m) for m in (0, 1)],
+                    "refused": counts[0].count(None),
+                    "predicted": list(want[1:])})
+        if counts != want:
+            raise AssertionError(f"failover {name}: {counts[1:]}, served "
+                                 f"{counts[0]}; the plan predicts "
+                                 f"{want[1:]}, served {want[0]}")
+        if name == "hard down" and set(counts[0]) != {0}:
+            raise AssertionError("failover: a request landed on the hard-"
+                                 "down model")
+    emit({"phase": "failover", "first_choice_by_model":
+          [first.count(m) for m in (0, 1)], "runs": out})
+    return rows
+
+
+def _flip_labels(torch, train: dict, mask) -> dict:
+    """Label-flip fault at the data layer: the masked clients report
+    inverted accuracies (acc → 1 − acc on their real rows), as
+    ``benchmarks/perf_suite.py::_flip_labels`` does."""
+    bad = torch.as_tensor(mask, device=train["acc"].device)
+    flip = bad[:, None] & (train["w"] > 0)
+    return {**train, "acc": torch.where(flip, 1.0 - train["acc"],
+                                        train["acc"])}
+
+
+def reference_scale_split(torch, dev) -> dict:
+    """``bench_resilience``'s corpus at its own scale (1,500 queries, 5
+    tasks, 6 models, d_emb 16) and its split over 8 clients."""
+    from repro_torch.config import FedConfig
+    from repro_torch.data.partition import federated_split
+    from repro_torch.data.synthetic import make_eval_corpus
+    gen = torch.Generator(device=dev).manual_seed(0)
+    corpus = make_eval_corpus(gen, n_queries=1500, n_tasks=5, n_models=6,
+                              d_emb=16)
+    return federated_split(gen, corpus, FedConfig(num_clients=8))
+
+
+def resilience_table(torch, dev, split) -> list:
+    """Robust aggregation under Byzantine clients, two sizes.
+
+    * Full width: the MLP router at d_emb 768, 11 models, 10 clients, the
+      36,000-query split, ``FedConfig(participation=1.0)``, 10 rounds (cut
+      from 30); fedavg, trimmed mean and median, each clean and under
+      ``FaultPlan(seed=3, corrupt_frac=0.25)``'s sign flip.
+    * The reference benchmark's own scale (``bench_resilience``: d_emb 16,
+      6 models, 8 clients, 1,500 queries, hidden (32, 32), 40 rounds): the
+      four strategies under the four fault classes.
+
+    Every clean AUC, and every AUC of the trimmed mean and median under
+    attack, must lie between the cheapest model's accuracy and the
+    oracle's AUC at full width; at the reference scale the upper end is
+    the oracle's accuracy (each query's best model), since there a fit's
+    frontier AUC can pass the oracle's in both packages (``frontier_auc``
+    normalises each frontier by its own cost range; the oracle's AUC is
+    printed beside it). A corrupted fedavg or norm-clip fit need only be
+    finite. Under sign flip the trimmed mean and the median must both beat
+    fedavg at both sizes. Each AUC is printed beside ``BENCH_resilience.json``'s
+    (JAX on a CPU: no equality expected)."""
+    from repro_torch import routers
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.core import policy
+    from repro_torch.fed import (FaultPlan, FedAvgAggregator,
+                                 MedianAggregator, NormClipAggregator,
+                                 TrimmedMeanAggregator)
+    from repro_torch.kernels import ops
+    plan = FaultPlan(seed=3, corrupt_frac=0.25)
+    aggs = {"fedavg": FedAvgAggregator(),
+            "trimmed_mean": TrimmedMeanAggregator(trim_frac=0.25),
+            "median": MedianAggregator(),
+            "norm_clip": NormClipAggregator(clip=0.5)}
+    # BENCH_resilience.json's table (JAX on a CPU), read as data
+    ref = json.loads((ROOT / "BENCH_resilience.json").read_text())[
+        "meta"]["corruption_auc"]
+    rows = []
+
+    def table(size, rcfg, fcfg, sp, rounds, names, modes, by_accuracy):
+        train, tg = sp["train"], sp["test_global"]
+        n = fcfg.num_clients
+        floor, oracle = auc_bounds(torch, tg)
+        best = float(tg["acc_table"].max(1).values.mean())
+        band = (floor, best if by_accuracy else oracle)
+        out = {}
+        for name in names:
+            out[name] = {}
+            for mode in ("clean",) + modes:
+                data, agg = train, aggs[name]
+                if mode == "label_flip":
+                    data = _flip_labels(torch, train,
+                                        plan.corrupted_clients(n))
+                elif mode != "clean":
+                    agg = plan.corrupt_updates(n, inner=agg, mode=mode)
+                gen = torch.Generator(device=dev).manual_seed(5)
+                (r, _), row = run_fit(
+                    torch, ops, f"resilience {size} {name} {mode}",
+                    lambda: routers.fit_federated(
+                        routers.make("mlp", rcfg), data, fcfg, gen=gen,
+                        device=dev, rounds=rounds, aggregator=agg), {})
+                rows.append(row)
+                auc = policy.eval_router(r.predict, tg["x"],
+                                         tg["acc_table"],
+                                         tg["cost_table"])[2]
+                out[name][mode] = auc
+        emit({"phase": "resilience_table", "size": size, "rounds": rounds,
+              "clients": n, "corrupted": plan.corrupted_clients(n)
+              .nonzero()[0].tolist(), "cheapest_model_acc": floor,
+              "oracle": oracle, "oracle_accuracy": best, "band": band,
+              "auc": out,
+              "bench_resilience_json": {k: ref[k] for k in names}})
+        for name, by_mode in out.items():
+            for mode, auc in by_mode.items():
+                what = f"resilience {size} {name} {mode}"
+                if mode == "clean" or name in ("trimmed_mean", "median"):
+                    check_auc(what, auc, band)
+                elif not math.isfinite(auc):
+                    raise AssertionError(f"{what}: AUC {auc!r}")
+        for name in ("trimmed_mean", "median"):
+            if not out[name]["sign_flip"] > out["fedavg"]["sign_flip"]:
+                raise AssertionError(
+                    f"resilience {size}: {name} under sign flip "
+                    f"{out[name]['sign_flip']!r} does not beat fedavg's "
+                    f"{out['fedavg']['sign_flip']!r}")
+
+    t0 = time.perf_counter()
+    table("full width", RouterConfig(),
+          FedConfig(participation=1.0), split, FED_ROUNDS,
+          ("fedavg", "trimmed_mean", "median"), ("sign_flip",), False)
+    t1 = time.perf_counter()
+    rcfg = RouterConfig(d_emb=16, num_models=6, hidden=(32, 32), dropout=0.0)
+    fcfg = FedConfig(num_clients=8, participation=1.0, batch_size=32,
+                     lr=3e-3)
+    table("reference scale", rcfg, fcfg, reference_scale_split(torch, dev),
+          REF_ROUNDS, tuple(aggs), ("sign_flip", "scaled_noise",
+                                    "label_flip"), True)
+    emit({"phase": "resilience_table_seconds", "full_width": t1 - t0,
+          "reference_scale": time.perf_counter() - t1})
+    return rows
+
+
+def cohort_fit(torch, dev, split) -> list:
+    """At full width: one 10-round MLP fit each with ``cohort`` None, 5 and
+    3 under ``FedConfig(participation=1.0)``; each must aggregate stacks
+    of exactly its cohort's size every round (10 without one). Prints the
+    seconds per fit."""
+    from repro_torch import routers
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.fed import FedAvgAggregator
+    from repro_torch.kernels import ops
+
+    class StackSizes(FedAvgAggregator):
+        """FedAvg recording the size of each stack it aggregates."""
+
+        def __call__(self, client_params, wts, gen):
+            self.__dict__.setdefault("sizes", []).append(int(wts.shape[0]))
+            return super().__call__(client_params, wts, gen)
+
+    fcfg = FedConfig(participation=1.0)
+    rows, secs = [], {}
+    for cohort in (None, 5, 3):
+        spy = StackSizes()
+        gen = torch.Generator(device=dev).manual_seed(6)
+        _, row = run_fit(torch, ops, f"cohort {cohort}", lambda: (
+            routers.fit_federated(routers.make("mlp", RouterConfig()),
+                                  split["train"], fcfg, gen=gen, device=dev,
+                                  rounds=FED_ROUNDS, cohort=cohort,
+                                  aggregator=spy), None), {})
+        rows.append(row)
+        want = [cohort or fcfg.num_clients] * FED_ROUNDS
+        if spy.sizes != want:
+            raise AssertionError(f"cohort {cohort}: aggregated stacks of "
+                                 f"{spy.sizes}, expected {want}")
+        secs[str(cohort)] = row["seconds"]
+    emit({"phase": "cohort_fit", "rounds": FED_ROUNDS,
+          "seconds_per_fit": secs})
+    return rows
+
+
 SPEC_K = 4
 SPEC_NEW = 32
 
@@ -2556,6 +2999,14 @@ def main() -> None:
     t0 = time.perf_counter()
     paths, pool = main_path(torch, dev)
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})
+    # the harvest and failover while the full-width pool is loaded
+    t0 = time.perf_counter()
+    fed_rows, srv_h = harvest_full_width(torch, dev, pool)
+    paths += fed_rows
+    paths += failover(torch, dev, pool, srv_h.router)
+    del srv_h
+    emit({"phase": "harvest_failover_done",
+          "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     paths.append(resilience_full_width(torch, dev, pool))
     paths += spec_full_width(torch, dev, pool)
@@ -2569,6 +3020,12 @@ def main() -> None:
     t0 = time.perf_counter()
     paths += features_phase(torch, dev, corpus, split, fitted)
     emit({"phase": "features_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    paths += resilience_table(torch, dev, split)
+    t1 = time.perf_counter()
+    paths += cohort_fit(torch, dev, split)
+    emit({"phase": "fed_fits_done", "resilience_seconds": t1 - t0,
+          "cohort_seconds": time.perf_counter() - t1})
     t0 = time.perf_counter()
     profile_fit(torch, dev, split)
     emit({"phase": "profile_fit_done", "seconds": time.perf_counter() - t0})

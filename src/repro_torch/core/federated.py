@@ -21,10 +21,11 @@ Client dataset layout (N clients, padded to D_max rows):
 
 The family's loss (``loss_fn``), a freeze mask (§6.3 model onboarding),
 the distillation anchor and the eligible-client mask (App. D.3 client
-onboarding) apply as in the reference. Not ported yet, each raising
+onboarding) apply as in the reference, and so do per-round cohort
+sampling (``cohort=``) and the staleness vector of buffered-async
+strategies (``staleness=``). Not ported yet, each raising
 ``NotImplementedError``: the sharded round (``mesh=``,
-``fedavg_round_sharded``, ``pad_client_axis``), cohort sampling and
-``staleness``.
+``fedavg_round_sharded``, ``pad_client_axis``).
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ import torch
 
 from repro_torch.config import FedConfig, RouterConfig
 from repro_torch.core import mlp_router as R
-from repro_torch.fed.aggregators import FedAvgAggregator, GaussianDPAggregator
+from repro_torch.fed.aggregators import (FedAvgAggregator,
+                                         GaussianDPAggregator, select_clients)
 from repro_torch.train.optim import (SGD, AdamW, AdamWState, masked_update,
                                      tree_leaves, tree_map)
 
@@ -164,19 +166,41 @@ def _default_aggregator(dp_sigma: float):
     return FedAvgAggregator()
 
 
+def _draw_cohort(gen, n: int, cohort: int) -> torch.Tensor:
+    """The round's cohort: ``cohort`` of the ``n`` stacked clients, in the
+    order of a permutation drawn from ``gen``."""
+    return torch.randperm(n, generator=gen, device=gen.device)[:cohort]
+
+
 def fedavg_round(params, data, gen, rcfg: RouterConfig, fcfg: FedConfig,
                  opt, max_steps: int, *, full_batch: bool = False,
                  freeze=None, distill=None, client_mask=None,
-                 dp_sigma: float = 0.0, aggregator=None, loss_fn=None):
+                 dp_sigma: float = 0.0, aggregator=None, loss_fn=None,
+                 cohort: Optional[int] = None, staleness=None):
     """One communication round: local updates on the active clients and
     the server aggregation (Alg. 1 lines 3–11). round(participation·N)
     clients are drawn by a permutation; ``client_mask`` (N,) restricts
     them to the eligible pool, and when none of the drawn ones is eligible
     the whole pool trains (App. D.3). The aggregation weights are the
     active clients' dataset sizes. dp_sigma > 0 adds server-side Gaussian
-    noise over whichever strategy runs."""
+    noise over whichever strategy runs.
+
+    ``cohort=C`` first gathers C of the N stacked clients (``_draw_cohort``)
+    and the round runs on that (C, ...) slab; ``participation`` applies
+    within it. ``staleness`` (N,) is gathered with the cohort and handed to
+    strategies that declare ``needs_staleness``; strategies that declare
+    ``needs_prev`` get the round's input params. Only the active clients
+    train, so the strategy sees the compacted stack and everything indexed
+    by stack position (staleness, ``select_clients``) is gathered with the
+    same indices."""
     N = data["x"].shape[0]
     dev = data["x"].device
+    if cohort is not None:
+        pick = _draw_cohort(gen, N, cohort)
+        data = {k: v[pick] for k, v in data.items()}
+        if staleness is not None:
+            staleness = staleness[pick]
+        N = cohort
     n_active = max(1, int(round(fcfg.participation * N)))
     drawn = torch.randperm(N, generator=gen, device=dev)[:n_active]
     active = torch.zeros(N, device=dev)
@@ -198,7 +222,14 @@ def fedavg_round(params, data, gen, rcfg: RouterConfig, fcfg: FedConfig,
         agg = GaussianDPAggregator(sigma=dp_sigma, inner=aggregator)
     else:
         agg = aggregator
-    new_params = agg(client_params, wts, gen)
+    agg = select_clients(agg, idx, N)
+    extras = {}
+    if getattr(agg, "needs_prev", False):
+        extras["prev"] = params
+    if getattr(agg, "needs_staleness", False):
+        extras["staleness"] = (torch.zeros_like(wts) if staleness is None
+                               else staleness[idx].float())
+    new_params = agg(client_params, wts, gen, **extras)
     wn = wts / torch.clamp(wts.sum(), min=1e-12)
     return new_params, (client_loss * wn).sum()
 
@@ -226,11 +257,41 @@ def fedavg(gen, data, rcfg: RouterConfig, fcfg: FedConfig, *,
     drawn from ``gen``). ``loss_fn`` selects the family's loss, ``freeze``
     masks the steps, ``distill`` anchors them to a frozen router and
     ``client_mask`` restricts each round to eligible clients (see
-    ``fedavg_round``). Returns (params, {"loss": per-round loss, "eval":
-    ``eval_fn(params)`` after every ``eval_every`` rounds and after the
-    last})."""
-    _not_ported(mesh=mesh, cohort=cohort, staleness=staleness)
+    ``fedavg_round``). ``cohort=C`` trains C sampled clients per round
+    (C >= N is full participation); ``staleness`` (N,) feeds a strategy
+    that declares ``needs_staleness`` and is refused by any other. Returns
+    (params, {"loss": per-round loss, "eval": ``eval_fn(params)`` after
+    every ``eval_every`` rounds and after the last})."""
+    _not_ported(mesh=mesh)
     rounds = rounds if rounds is not None else fcfg.rounds
+    N = data["x"].shape[0]
+    if cohort is not None:
+        if client_mask is not None:
+            raise ValueError(
+                "cohort sampling and client_mask are mutually exclusive: "
+                "the mask is indexed by the full client axis, the cohort "
+                "gather re-indexes it per round")
+        cohort = int(cohort)
+        if cohort < 1:
+            raise ValueError(f"cohort must be >= 1, got {cohort}")
+        if cohort >= N:
+            cohort = None  # full participation
+    if staleness is not None:
+        # GaussianDP forwards needs_staleness from its inner strategy, so
+        # checking the caller's aggregator covers the dp_sigma > 0 wrap too
+        if not getattr(aggregator, "needs_staleness", False):
+            name = type(aggregator).__name__ if aggregator is not None \
+                else "default FedAvg"
+            raise ValueError(
+                f"staleness= was provided but the aggregator ({name}) does "
+                "not consume it — use a buffered-async strategy (e.g. "
+                "BufferedAsyncAggregator) or drop the argument")
+        staleness = torch.as_tensor(staleness, dtype=torch.float32,
+                                    device=data["x"].device)
+        if tuple(staleness.shape) != (N,):
+            raise ValueError(
+                f"staleness must have shape ({N},) — one entry per stacked "
+                f"client — got {tuple(staleness.shape)}")
     D_max = data["x"].shape[1]
     max_steps = 1 if full_batch else max(
         1, math.ceil(D_max / fcfg.batch_size)) * fcfg.local_epochs
@@ -243,7 +304,8 @@ def fedavg(gen, data, rcfg: RouterConfig, fcfg: FedConfig, *,
                                     freeze=freeze, distill=distill,
                                     client_mask=client_mask,
                                     dp_sigma=dp_sigma, aggregator=aggregator,
-                                    loss_fn=loss_fn)
+                                    loss_fn=loss_fn, cohort=cohort,
+                                    staleness=staleness)
         hist["loss"].append(float(loss))
         if eval_fn is not None and ((t + 1) % eval_every == 0
                                     or t + 1 == rounds):

@@ -38,7 +38,8 @@ def fit_federated(router: Router, data: dict, fcfg: FedConfig, *, gen,
     the history dict. ``eval_fn`` receives a fitted ``Router`` (per round
     for iterative families, once for one-shot families); ``family_kw``
     forwards family-specific knobs (optimizer=, full_batch=, freeze=,
-    distill=, client_mask=, dp_sigma=, aggregator=, eval_every=)."""
+    distill=, client_mask=, dp_sigma=, aggregator=, cohort=, staleness=,
+    eval_every=); the one-shot families refuse what they do not take."""
     dev = resolve_device(device)
     new_router, hist = router._fit_federated(
         generator(gen, dev), on_device(data, dev), fcfg, rounds=rounds,

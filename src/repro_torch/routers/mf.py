@@ -101,8 +101,8 @@ class MFRouter(Router):
     def _fit_federated(self, gen, data, fcfg, *, rounds=None, eval_fn=None,
                        mesh=None, **kw):
         """Alg. 1 with the MF loss; ``kw`` forwards optimizer / full_batch /
-        freeze / distill / client_mask / dp_sigma / aggregator /
-        eval_every to ``fedavg`` as the MLP family does."""
+        freeze / distill / client_mask / dp_sigma / aggregator / cohort /
+        staleness / eval_every to ``fedavg`` as the MLP family does."""
         init = self._init_for_fit(gen)
         wrapped = (None if eval_fn is None
                    else lambda p: eval_fn(self.with_state(p)))

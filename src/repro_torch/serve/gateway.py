@@ -24,15 +24,22 @@ carry a ``deadline``, may be cancelled and may be shed; ``step`` and
 ``drain`` return a typed ``Outcome`` for those, and an expiry counts as a
 backend failure (``backend_failures``, ``expiry_failures``).
 
-Not ported yet, each raising ``NotImplementedError``: the harvest store
-(``client_id``, ``report_outcome``, ``routed_model``), fault plans
-(retries and failover), the cross-silo mesh, router hot-swap and model
-onboarding.
+The online loop's hooks: with a ``HarvestStore`` attached (``harvest=``),
+a request submitted with ``client_id=`` is registered until its client
+calls ``report_outcome``, which appends (x, served model, score, cost) to
+that client's buffer; an expiry records a zero score. A ``FaultPlan``
+(``fault_plan=``) makes ``submit`` retry failing backends and fail over
+down the router's own ranking. ``swap_router_state`` hot-swaps refitted
+state of the same structure, and ``add_model`` onboards a pool model with
+its expanded router; both bump ``router_version``.
+
+Not ported yet, raising ``NotImplementedError``: the cross-silo mesh.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 import zlib
 from typing import Callable, Dict, List, Optional, Union
 
@@ -44,9 +51,15 @@ from repro_torch.data.encoder import encode
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.routers import Router
-from repro_torch.serve.engine import (EXPIRED, EngineConfig, Outcome,
-                                      ServeEngine, next_pow2)
+from repro_torch.serve.engine import (CANCELLED, EXPIRED, SHED,
+                                      EngineConfig, Outcome, ServeEngine,
+                                      next_pow2)
 from repro_torch.serve.kv_cache import extend_cache
+
+#: un-reported harvest entries kept per server (submit → report_outcome);
+#: the oldest are evicted beyond this, so traffic without feedback cannot
+#: grow memory.
+PENDING_EVAL_CAP = 8192
 
 
 @dataclasses.dataclass
@@ -67,6 +80,23 @@ def make_pool_model(name: str, cfg: ModelConfig, cost_per_token: float, *,
                      cost_per_token)
 
 
+def _state_spec(tree):
+    """(structure, [(shape, dtype) per leaf], {devices}) of a router state
+    tree of dicts (keys in sorted order, as a JAX tree), lists and
+    tensors."""
+    if isinstance(tree, dict):
+        parts = [(k, _state_spec(v)) for k, v in sorted(tree.items())]
+        return (("dict", tuple((k, p[0]) for k, p in parts)),
+                [l for _, p in parts for l in p[1]],
+                set().union(*(p[2] for _, p in parts)))
+    if isinstance(tree, (list, tuple)):
+        parts = [_state_spec(v) for v in tree]
+        return (("list", tuple(p[0] for p in parts)),
+                [l for p in parts for l in p[1]],
+                set().union(*(p[2] for p in parts)))
+    return "leaf", [(tuple(tree.shape), tree.dtype)], {tree.device}
+
+
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
     """(B, 1, V) logits → (B, 1) int32 greedy tokens (first max on ties)."""
     return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -78,19 +108,22 @@ class RoutedServer:
     Takes ONE fitted ``Router``; its model dimension M must match the
     pool. Runs on the CUDA device unless ``device`` names another; the
     router's state and every pool model's params must live there.
+    ``harvest`` (a ``fed.harvest.HarvestStore``) collects the outcomes
+    clients report; ``fault_plan`` (a ``fed.faults.FaultPlan``) injects
+    backend failures, retried ``max_retries`` times with exponential
+    backoff from ``retry_backoff`` seconds before failing over.
     """
 
     def __init__(self, pool: List[PoolModel], router: Router,
                  d_emb: Optional[int] = None,
                  engine_cfg: Optional[EngineConfig] = None,
-                 harvest=None, fault_plan=None, mesh=None,
+                 harvest=None, fault_plan=None, max_retries: int = 2,
+                 retry_backoff: float = 0.0, mesh=None,
                  device: DeviceLike = None):
-        for what, val in (("harvest", harvest), ("fault_plan", fault_plan),
-                          ("mesh", mesh)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"RoutedServer({what}=...) is not ported to the PyTorch "
-                    "gateway yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "RoutedServer(mesh=...) is not ported to the PyTorch "
+                "gateway yet")
         self.device = resolve_device(device)
         if not isinstance(router, Router):
             raise TypeError("RoutedServer takes a repro_torch.routers.Router "
@@ -114,11 +147,28 @@ class RoutedServer:
         self.router = router
         self.d_emb = router.rcfg.d_emb
         self.engine = ServeEngine(pool, engine_cfg, device=self.device)
+        # the harvest: rid → (client, x, model, cost estimate) until the
+        # client reports; bounded tombstones say why a rid is unknown
+        self.harvest = harvest
+        self._pending_evals: Dict[int, tuple] = {}
+        self._evicted_rids = collections.deque(maxlen=4096)
+        self._reported_rids = collections.deque(maxlen=4096)
+        #: bumped by every swap_router_state / add_model
+        self.router_version = 0
+        self.fault_plan = fault_plan
+        self.max_retries = int(max_retries)
+        self.retry_backoff = float(retry_backoff)
+        self._submit_seq = 0
+        #: failed backend attempts (expiries included), retries of the same
+        #: backend, and re-routes to another one
+        self.backend_failures = 0
+        self.retries = 0
+        self.failovers = 0
         #: expiries count as backend failures: the router should learn an
         #: overloaded backend as it learns a failed one
-        self.backend_failures = 0
         self.expiry_failures = 0
         self._failed_rids = collections.deque(maxlen=4096)
+        self._terminated_rids = collections.deque(maxlen=4096)
 
     def _route_x(self, x: np.ndarray, lam: float) -> np.ndarray:
         """Route pre-encoded query embeddings x: (B, d_emb) → (B,) model
@@ -135,10 +185,47 @@ class RoutedServer:
     def route(self, prompts: List[str], lam: float) -> np.ndarray:
         return self._route_x(encode(prompts, self.d_emb), lam)
 
+    # ----------------------------------------------------- router lifecycle
+    def swap_router_state(self, state) -> None:
+        """Hot-swap fitted router state under live traffic: the same
+        family, tree structure, leaf shapes and dtypes, on the server's
+        device. Requests in flight keep the models they were routed to.
+        Bumps ``router_version``."""
+        old_s, old_l, _ = _state_spec(self.router.state)
+        new_s, new_l, devs = _state_spec(state)
+        if old_s != new_s or old_l != new_l:
+            raise ValueError(
+                "swap_router_state got a different state structure or "
+                "buffer shapes — a structural change (new family, expanded "
+                "pool) is an add_model/replacement, not a hot swap")
+        if devs != {self.device}:
+            raise ValueError(
+                f"swap_router_state got state on {sorted(map(str, devs))}, "
+                f"the server runs on {self.device}")
+        self.router = self.router.with_state(state)
+        self.router_version += 1
+
+    def add_model(self, pm: PoolModel, router: Router) -> None:
+        """Onboard a pool model mid-run (§6.3): append it to the pool (the
+        engine shares the list; its lane is built on first traffic) and
+        install the router expanded to it. Bumps ``router_version``."""
+        if router.num_models != len(self.pool) + 1:
+            raise ValueError(
+                f"add_model expects a router expanded to M={len(self.pool) + 1}"
+                f" (got M={router.num_models}) — onboard the router first "
+                "(router.onboard_model)")
+        if router.device != self.device:
+            raise ValueError(f"router state lives on {router.device}, the "
+                             f"server on {self.device}")
+        self.pool.append(pm)
+        self.router = router
+        self.router_version += 1
+
     # -------------------------------------------------- engine streaming API
     def submit(self, prompt: str, *, lam: float = 0.5,
                max_new_tokens: int = 16,
                tokenize: Optional[Callable] = None,
+               client_id: Optional[int] = None,
                x: Optional[np.ndarray] = None,
                deadline: Optional[int] = None,
                draft_model: Optional[int] = None) -> int:
@@ -148,10 +235,21 @@ class RoutedServer:
         request's life in engine steps (``ServeEngine.submit``). On a
         speculative engine the request drafts with ``draft_model`` (a pool
         index) or else with ``_pick_draft``'s choice. Call ``step()`` to
-        advance decoding or ``drain()`` to run to completion."""
+        advance decoding or ``drain()`` to run to completion.
+
+        With a ``harvest`` store attached and ``client_id`` given, the
+        request is registered: ``routed_model(rid)`` gives the model that
+        serves it and ``report_outcome(rid, score)`` records the
+        observation in that client's buffer. A submit SHED by a full lane
+        queue still returns its rid but is never registered. With a
+        ``fault_plan`` the backend is resolved by
+        ``_submit_with_failover``, and the harvest records the model that
+        actually served the request."""
         x_arr = (encode([prompt], self.d_emb)[0] if x is None
                  else np.asarray(x, np.float32).reshape(self.d_emb))
         m_idx = int(self._route_x(x_arr[None], lam)[0])
+        if self.fault_plan is not None:
+            m_idx = self._submit_with_failover(m_idx, x_arr, lam)
         toks = self._tokenize([prompt], self.pool[m_idx].cfg, tokenize)[0]
         if self.engine.ecfg.spec_k:
             draft = (int(draft_model) if draft_model is not None
@@ -161,8 +259,61 @@ class RoutedServer:
                              "engine — set EngineConfig.spec_k > 0")
         else:
             draft = None
-        return self.engine.submit(m_idx, toks, max_new_tokens,
-                                  deadline=deadline, draft=draft)
+        rid = self.engine.submit(m_idx, toks, max_new_tokens,
+                                 deadline=deadline, draft=draft)
+        if self.engine._status.get(rid) == SHED:
+            self._terminated_rids.append(rid)
+            return rid
+        if self.harvest is not None and client_id is not None:
+            cost_est = self.pool[m_idx].cost_per_token * max_new_tokens
+            self._pending_evals[rid] = (int(client_id), x_arr, m_idx,
+                                        cost_est)
+            while len(self._pending_evals) > PENDING_EVAL_CAP:
+                old = next(iter(self._pending_evals))
+                self._pending_evals.pop(old)
+                self._evicted_rids.append(old)
+        return rid
+
+    def _utility(self, x_arr: np.ndarray, lam: float) -> np.ndarray:
+        """(M,) the router's A − λ·C on one query (``router.predict``)."""
+        xt = torch.as_tensor(x_arr[None], dtype=torch.float32,
+                             device=self.device)
+        A, C = self.router.predict(xt)
+        return (A[0] - lam * C[0]).cpu().numpy()
+
+    def _submit_with_failover(self, m_idx: int, x_arr: np.ndarray,
+                              lam: float) -> int:
+        """The backend that will serve this submission: transient failures
+        are retried up to ``max_retries`` times with exponential backoff,
+        then the request walks down the router's utility ranking past the
+        failed backends. Raises RuntimeError only when every backend of
+        the pool has failed."""
+        seq = self._submit_seq
+        self._submit_seq += 1
+        plan = self.fault_plan
+        failed: set = set()
+        order = None
+        attempt = 0
+        while plan.backend_fails(m_idx, seq, attempt):
+            self.backend_failures += 1
+            if attempt < self.max_retries:
+                attempt += 1
+                self.retries += 1
+                if self.retry_backoff > 0.0:
+                    time.sleep(self.retry_backoff * 2.0 ** (attempt - 1))
+                continue
+            failed.add(m_idx)
+            if len(failed) == len(self.pool):
+                raise RuntimeError(
+                    f"all {len(self.pool)} pool backends failed request "
+                    f"#{seq} — nothing left to re-route to")
+            if order is None:  # rank once, only on a failover
+                order = [int(i) for i in
+                         np.argsort(-self._utility(x_arr, lam))]
+            m_idx = next(i for i in order if i not in failed)
+            self.failovers += 1
+            attempt = 0
+        return m_idx
 
     def _pick_draft(self, m_idx: int, x_arr: np.ndarray, lam: float) -> int:
         """The drafter for a request routed to ``m_idx``: among pool models
@@ -179,16 +330,61 @@ class RoutedServer:
                 and pm.cfg.arch_type not in ("ssm", "hybrid")]
         if not cand:
             return m_idx
-        xt = torch.as_tensor(x_arr[None], dtype=torch.float32,
-                             device=self.device)
-        A, C = self.router.predict(xt)
-        util = (A[0] - lam * C[0]).cpu().numpy()
+        util = self._utility(x_arr, lam)
         return max(cand, key=lambda i: util[i])
 
+    # ------------------------------------------------------------ harvest
+    def _unknown_rid(self, rid: int) -> ValueError:
+        """The error for a rid with no pending evaluation, saying why."""
+        if rid in self._evicted_rids:
+            why = (f"it was evicted by the pending-eval cap "
+                   f"(PENDING_EVAL_CAP={PENDING_EVAL_CAP}) — report "
+                   "outcomes sooner or raise the cap")
+        elif rid in self._reported_rids:
+            why = "its outcome was already reported (each rid reports once)"
+        elif rid in self._failed_rids:
+            why = ("it EXPIRED past its deadline — the gateway already "
+                   "recorded the expiry as a zero-score backend failure")
+        elif rid in self._terminated_rids:
+            why = ("it was cancelled or shed before serving — nothing was "
+                   "generated, so there is no outcome to report")
+        else:
+            why = ("it was never harvest-registered — submit() it with "
+                   "client_id= and attach a HarvestStore to track routing "
+                   "outcomes")
+        return ValueError(f"request {rid} has no pending evaluation: {why}")
+
+    def routed_model(self, rid: int) -> int:
+        """The model a harvest-registered request was routed to (after any
+        failover). Raises ValueError for a rid with no pending
+        evaluation."""
+        try:
+            return self._pending_evals[rid][2]
+        except KeyError:
+            raise self._unknown_rid(rid) from None
+
+    def report_outcome(self, rid: int, score: float,
+                       cost: Optional[float] = None) -> None:
+        """Client feedback closes the harvest loop: append (query
+        embedding, served model, score, cost) to the submitting client's
+        buffer. ``cost`` defaults to the submit-time estimate
+        (cost_per_token × max_new_tokens). Raises ValueError for a rid with
+        no pending evaluation."""
+        try:
+            client_id, x_arr, m_idx, cost_est = self._pending_evals.pop(rid)
+        except KeyError:
+            raise self._unknown_rid(rid) from None
+        self._reported_rids.append(rid)
+        self.harvest.record(client_id, x_arr, m_idx, float(score),
+                            float(cost if cost is not None else cost_est))
+
     def cancel(self, rid: int) -> str:
-        """Cancel an engine request (``ServeEngine.cancel``); returns its
-        typed status."""
-        return self.engine.cancel(rid)
+        """Cancel an engine request (``ServeEngine.cancel``) and drop its
+        harvest registration; returns its typed status."""
+        status = self.engine.cancel(rid)
+        if self._pending_evals.pop(rid, None) is not None:
+            self._terminated_rids.append(rid)
+        return status
 
     def status(self, rid: int) -> str:
         """Typed lifecycle status of an engine request
@@ -196,15 +392,28 @@ class RoutedServer:
         return self.engine.status(rid)
 
     def _absorb_outcomes(self, results) -> None:
-        """Count each EXPIRED request once as a backend failure. (The
-        reference also records a zero-score outcome in the harvest store,
-        which the port does not have yet.)"""
+        """React to the engine's typed non-completions. An EXPIRED request
+        counts once as a backend failure, and a harvest-registered one is
+        recorded as a zero-score outcome against its model, so the router
+        learns an overloaded backend as it learns a failed one. CANCELLED
+        and SHED drop the registration: nothing was served."""
         for rid, payload in results:
-            if (isinstance(payload, Outcome) and payload.status == EXPIRED
-                    and rid not in self._failed_rids):
+            if not isinstance(payload, Outcome):
+                continue
+            if payload.status == EXPIRED:
+                if rid in self._failed_rids:
+                    continue
                 self._failed_rids.append(rid)
                 self.backend_failures += 1
                 self.expiry_failures += 1
+                ent = self._pending_evals.pop(rid, None)
+                if ent is not None and self.harvest is not None:
+                    client_id, x_arr, m_idx, cost_est = ent
+                    self.harvest.record(client_id, x_arr, m_idx, 0.0,
+                                        cost_est)
+            elif payload.status in (CANCELLED, SHED):
+                if self._pending_evals.pop(rid, None) is not None:
+                    self._terminated_rids.append(rid)
 
     def step(self):
         """Advance every busy engine lane one chunk. Returns

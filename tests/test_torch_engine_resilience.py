@@ -13,11 +13,12 @@ traffic, events from ``benchmarks/perf_suite.py::_deadline_traffic``)
 gives the reference's counts in all six cells, through the copy of that
 traffic and the replay loop that ``chip_smoke.py`` runs on the card.
 
-Not here yet: the reference cases that need the harvest store,
-``FaultPlan``, ``FedLoop`` or ``engine_chaos_schedule``
-(``tests/test_engine_resilience.py`` from the gateway's harvest
-accounting on); they wait for ``fed/harvest.py`` and ``fed/faults.py``
-in the port.
+The gateway's harvest accounting of these outcomes (the zero-score
+record of an expiry, cancel and shedding dropping the registration) is
+held against the reference in ``tests/test_torch_fed_gateway.py``. Not
+here yet: the reference cases that need ``FedLoop`` or
+``engine_chaos_schedule``, which wait for the port's ``fed/loop.py`` and
+``fed/scenarios.py``.
 """
 import importlib.util
 import json
@@ -401,8 +402,8 @@ def _tiny_server(ecfg):
 
 
 def test_gateway_expiry_counts_as_backend_failure():
-    """An EXPIRED request counts once as a backend failure (the
-    reference's harvest record of it waits for the harvest store)."""
+    """An EXPIRED request counts once as a backend failure (its harvest
+    record: ``tests/test_torch_fed_gateway.py``)."""
     srv = _tiny_server(EngineConfig(slots=2, max_seq=32, chunk=4,
                                     page_size=8))
     x = np.zeros(8, np.float32)

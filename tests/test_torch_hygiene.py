@@ -60,11 +60,13 @@ def test_port_has_every_slice_module():
             # slice 7: the whole serving engine and qk-norm (qwen3-8b)
             "configs/qwen3_8b.py",
             # slice 8: MoE, SSM, hybrid, VLM and audio architectures
-            "models/moe.py", "models/ssm.py"]
+            "models/moe.py", "models/ssm.py",
+            # slice 9: the federation side of the online loop
+            "fed/faults.py", "fed/harvest.py", "fed/__init__.py"]
     pkg = ROOT / "src" / "repro_torch"
     assert [w for w in want if not (pkg / w).is_file()] == []
-    # slices 7 and 8 grew modules that slice 1 began: what each must now
-    # define
+    # slices 7 to 9 grew modules that slices 1 and 2 began: what each must
+    # now define
     defs = {"serve/kv_cache.py": ["alloc_draft_pool", "grow", "held"],
             "models/attention.py": ["_masked_grouped_attn_multi",
                                     "attn_decode_verify",
@@ -77,7 +79,13 @@ def test_port_has_every_slice_module():
             "serve/engine.py": ["Outcome", "cancel", "status", "counters",
                                 "_expire", "_preempt", "_grow_for_chunk",
                                 "_admit_draft", "_decode_spec_round"],
-            "serve/gateway.py": ["_pick_draft", "cancel", "status"]}
+            "serve/gateway.py": ["_pick_draft", "cancel", "status",
+                                 "swap_router_state", "add_model",
+                                 "routed_model", "report_outcome",
+                                 "_unknown_rid", "_submit_with_failover"],
+            "fed/aggregators.py": ["TrimmedMeanAggregator",
+                                   "MedianAggregator", "NormClipAggregator",
+                                   "BufferedAsyncAggregator"]}
     missing = []
     for f, names in defs.items():
         tree = ast.parse((pkg / f).read_text())
@@ -90,6 +98,7 @@ def test_port_has_every_slice_module():
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     from repro_torch import routers
     from repro_torch.config import FedConfig, ModelConfig, RouterConfig
+    from repro_torch.fed import HarvestStore
     from repro_torch.models import init_params
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.gateway import RoutedServer, make_pool_model
@@ -110,6 +119,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     router = routers.make("mlp", rcfg).init(0, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RoutedServer(pool, router)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HarvestStore(16, clients=range(2))
+    assert HarvestStore(16, device="cpu").device == torch.device("cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(pool)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -21,6 +21,7 @@ from repro.serve import gateway as jgateway
 from repro.serve import kv_cache as jkv
 from repro_torch import convert, routers
 from repro_torch.config import ModelConfig, RouterConfig
+from repro_torch.fed import FaultPlan, HarvestStore
 from repro_torch.configs import get_config
 from repro_torch.serve import kv_cache as kv
 from repro_torch.serve.engine import EngineConfig, ServeEngine
@@ -179,9 +180,13 @@ def test_unported_gateway_features_raise():
     assert srv.status(rid) == "QUEUED"
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(srv.pool, mesh=object(), device="cpu")
-    for kw in ("harvest", "fault_plan", "mesh"):
-        with pytest.raises(NotImplementedError, match=kw):
-            RoutedServer(srv.pool, srv.router, device="cpu", **{kw: object()})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        RoutedServer(srv.pool, srv.router, device="cpu", mesh=object())
+    # the harvest and fault hooks are ported: they build a server
+    hooked = RoutedServer(srv.pool, srv.router, device="cpu",
+                          harvest=HarvestStore(16, device="cpu"),
+                          fault_plan=FaultPlan(seed=1))
+    assert hooked.harvest is not None and hooked.fault_plan.seed == 1
 
 
 def test_server_checks_devices_and_pool_size():
