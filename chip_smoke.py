@@ -44,12 +44,17 @@ router refitted from the harvest with the trimmed mean and hot-swapped in
 (routing = the refit's own, ``router_utility`` once per route bucket
 before and after), a K-means router fitted on the harvest through both
 K-means kernels, and failover under a ``FaultPlan`` (a hard-down backend
-and a transient one, counts equal to what the plan predicts). After the
-fit path: the corruption table (fedavg, trimmed mean and median, clean and
-under sign flip, at the §1 width; all four strategies under all four
-fault classes at ``bench_resilience``'s own scale, beside
-``BENCH_resilience.json``'s values) and full-width fits with per-round
-cohorts of 5 and 3 clients.
+and a transient one, counts equal to what the plan predicts), then the
+``FedLoop`` over that pool (a ``TrafficScenario`` at d_emb 768, syncs
+every 8 chunks, hot-swapped under traffic): one loop saves after phase 0
+and serves phase 1, a second loop on a fresh server restores the file and
+serves the same phase 1, bit for bit the same. After the fit path: the
+corruption table (fedavg, trimmed mean and median, clean and under sign
+flip, at the §1 width; all four strategies under all four fault classes
+at ``bench_resilience``'s own scale, beside ``BENCH_resilience.json``'s
+values), full-width fits with per-round cohorts of 5 and 3 clients, and
+``run_online_vs_frozen`` at ``BENCH_fedloop.json``'s scale (twice, the
+same dict) and with a model onboarded mid-run.
 
 Then the engine under overload and speculative decode: the verify's
 attention at the served shapes of qwen2-1.5b, yi-6b and qwen3-8b (the
@@ -2367,6 +2372,282 @@ def failover(torch, dev, pool, router) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The online loop: FedLoop at full width with a save and a restore, and the
+# online-vs-frozen experiment
+# ---------------------------------------------------------------------------
+
+#: the full-width loop's traffic: 4 clients over the 2-model pool at d_emb
+#: 768, two phases of 64 arrivals
+FEDLOOP_SCENARIO = dict(n_clients=4, n_tasks=8, n_models=2, d_emb=768,
+                        n_queries=2000, queries_per_phase=64, phases=2,
+                        max_new=MAX_NEW)
+#: ``BENCH_fedloop.json``'s scale (``bench_fedloop(smoke=False)``)
+ONLINE_SCENARIO = dict(n_clients=8, queries_per_phase=256, phases=3,
+                       n_queries=2000, test_queries=96)
+#: ``tests/test_fedloop.py::test_online_scenario_smoke``'s scale
+ONBOARD_SCENARIO = dict(n_clients=4, n_tasks=4, n_models=2, d_emb=16,
+                        n_queries=400, queries_per_phase=24, phases=2,
+                        test_queries=24, seed=0)
+
+
+def _serve_phase(loop, scen, phase: int) -> tuple:
+    """One scenario phase through the loop: every arrival submitted with
+    its client, λ and embedding, its observed outcome reported, one engine
+    chunk after each; then drained and a last sync offered. Returns
+    ([(rid, routed model)], {rid: tokens})."""
+    srv = loop.server
+    routes, toks = [], {}
+    for c, q, lam in scen.events(phase):
+        rid = srv.submit(scen.prompt(q), lam=lam,
+                         max_new_tokens=scen.cfg.max_new, client_id=c,
+                         x=scen.x(q, phase))
+        m = srv.routed_model(rid)
+        routes.append((rid, m))
+        srv.report_outcome(rid, *scen.observe(q, m))
+        toks.update(loop.step())
+    toks.update(loop.drain())
+    loop.maybe_sync()
+    return routes, toks
+
+
+def _time_syncs(torch, loop, probe, out: list) -> None:
+    """Record each sync of ``loop``: its seconds and how many of the probe
+    queries route elsewhere after the swap (argmax of the router's own
+    A − 0.5·C, computed without the route kernel so the launch counts stay
+    those of the traffic)."""
+    inner = loop.sync
+
+    def choice():
+        A, C = loop.server.router.predict(probe)
+        return torch.argmax(A - 0.5 * C, dim=-1)
+
+    def sync(**kw):
+        before = choice()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = inner(**kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0,
+                    int((choice() != before).sum())))
+        return hist
+    loop.sync = sync
+
+
+def fedloop_full_width(torch, dev, pool) -> list:
+    """The FedLoop over the served full-width pool: ``pool_router``'s MLP,
+    a ``HarvestStore(768, capacity=64)`` of 4 clients, the traffic (x, λ
+    and observed outcomes) of a ``TrafficScenario`` at d_emb 768, and
+    ``FedLoopConfig(sync_every=8, rounds_per_sync=4, min_samples=16)``.
+    Loop A serves phase 0, drains, syncs and saves, then serves phase 1;
+    loop C, on a fresh server over the same pool, restores A's file and
+    serves the same phase 1 (the clients' outcome stream rewound to the
+    save). C's router state, routes, tokens, history, harvest, version and
+    rid counter must equal A's bit for bit. Returns the rows of its runs."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.config import FedConfig
+    from repro_torch.fed import (FedLoop, FedLoopConfig, HarvestStore,
+                                 ScenarioConfig, TrafficScenario)
+    from repro_torch.kernels import ops
+    from repro_torch.serve.gateway import RoutedServer
+    from repro_torch.train.optim import tree_leaves
+    RU, PA = "router_utility", "paged_decode_attention"
+    t_phase = time.perf_counter()
+    router = pool_router(torch, dev, "mlp")
+    scen = TrafficScenario(ScenarioConfig(**FEDLOOP_SCENARIO))
+    n_ev = [len(scen.events(p)) for p in range(2)]
+    fcfg = FedConfig(num_clients=4, participation=0.75, batch_size=32,
+                     lr=3e-3)
+    lcfg = FedLoopConfig(sync_every=8, rounds_per_sync=4, min_samples=16)
+    probe = torch.as_tensor(scen.corpus["x"][:256], device=dev)
+
+    def loop_on_fresh_server(seed):
+        srv = RoutedServer(pool, router, device=dev, harvest=HarvestStore(
+            768, capacity=64, clients=range(4), device=dev))
+        return FedLoop(srv, fcfg, gen=seed, cfg=lcfg)
+
+    syncs_a, syncs_c, io, res = [], [], {}, {}
+    loop_a = loop_on_fresh_server(31)
+    _time_syncs(torch, loop_a, probe, syncs_a)
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "fedloop.ckpt"
+
+    def run_a():
+        _serve_phase(loop_a, scen, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop_a.save(path)
+        io["save_s"] = time.perf_counter() - t0
+        io["bytes"] = path.stat().st_size
+        io["syncs_at_save"] = len(loop_a.history)
+        res["outcomes"] = copy.deepcopy(scen._outcome_rng)
+        res["a"] = _serve_phase(loop_a, scen, 1)
+
+    loop_c = loop_on_fresh_server(32)
+    _time_syncs(torch, loop_c, probe, syncs_c)
+
+    def run_c():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop_c.restore(path)
+        torch.cuda.synchronize()
+        io["restore_s"] = time.perf_counter() - t0
+        scen._outcome_rng = res["outcomes"]
+        res["c"] = _serve_phase(loop_c, scen, 1)
+
+    rows = []
+    _, row = run_fit(torch, ops, "fedloop A: phase 0, save, phase 1",
+                     run_a, {RU: n_ev[0] + n_ev[1], PA: None},
+                     phase="fedloop")
+    rows.append(row)
+    _, row = run_fit(torch, ops, "fedloop C: restore, phase 1", run_c,
+                     {RU: n_ev[1], PA: None}, phase="fedloop")
+    rows.append(row)
+    tmp.cleanup()
+
+    # the restored loop continues bit for bit
+    srv_a, srv_c = loop_a.server, loop_c.server
+    (routes_a, toks_a), (routes_c, toks_c) = res["a"], res["c"]
+    diffs = []
+    sa, sc = srv_a.router.state, srv_c.router.state
+    la, lc = tree_leaves(sa), tree_leaves(sc)
+    if len(la) != len(lc) or not all(torch.equal(a, c)
+                                     for a, c in zip(la, lc)):
+        diffs.append("router state")
+    if routes_a != routes_c:
+        diffs.append("routes")
+    if sorted(toks_a) != sorted(toks_c) or not all(
+            np.array_equal(toks_a[r], toks_c[r]) for r in toks_a):
+        diffs.append("tokens")
+    keys = ("version", "loss", "samples")
+    n_saved = io["syncs_at_save"]
+    if (len(loop_a.history) != len(loop_c.history)
+            or loop_a.history[:n_saved] != loop_c.history[:n_saved]
+            or any({k: a[k] for k in keys} != {k: c[k] for k in keys}
+                   for a, c in zip(loop_a.history, loop_c.history))):
+        diffs.append("history")
+    ha, hc = srv_a.harvest.state(), srv_c.harvest.state()
+    if [c for c, _ in ha["clients"]] != [c for c, _ in hc["clients"]] or any(
+            not np.array_equal(a[k], c[k]) for (_, a), (_, c) in
+            zip(ha["clients"], hc["clients"]) for k in a):
+        diffs.append("harvest")
+    if srv_a.router_version != srv_c.router_version:
+        diffs.append("router_version")
+    if srv_a.engine._next_rid != srv_c.engine._next_rid:
+        diffs.append("next_rid")
+    if diffs:
+        raise AssertionError(f"fedloop: the restored loop's phase 1 differs "
+                             f"from the uninterrupted loop's in {diffs}")
+    if not loop_a.history or len(srv_a.harvest) == 0:
+        raise AssertionError("fedloop: loop A never synced")
+    emit({"phase": "fedloop_full_width", "events": n_ev,
+          "syncs": len(loop_a.history), "syncs_at_save": n_saved,
+          "router_version": srv_a.router_version,
+          "rows_per_client": [len(srv_a.harvest.buffer(c))
+                              for c in range(4)],
+          "routes_changed_per_sync": [n for _, n in syncs_a],
+          "probe_routes": int(probe.shape[0]),
+          "seconds_per_sync": [s for s, _ in syncs_a],
+          "restored_seconds_per_sync": [s for s, _ in syncs_c],
+          "launches_a": {k: rows[0]["launches"][k] for k in (RU, PA)},
+          "launches_c": {k: rows[1]["launches"][k] for k in (RU, PA)},
+          "save_seconds": io["save_s"], "restore_seconds": io["restore_s"],
+          "checkpoint_bytes": io["bytes"],
+          "engine_last_sync": loop_a.history[-1]["engine"],
+          "restored_engine_last_sync": loop_c.history[-1]["engine"],
+          "bit_identical": True,
+          "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+def _bench_fedloop() -> dict:
+    """``BENCH_fedloop.json``'s values (the JAX package on a CPU, another
+    corpus): printed beside the card's, a comparison, not a check."""
+    meta = json.loads((ROOT / "BENCH_fedloop.json").read_text())["meta"]
+    return {k: meta[k] for k in ("auc_online", "auc_frozen_local",
+                                 "auc_gap_final", "syncs",
+                                 "requests_served", "harvested_samples")}
+
+
+def _check_online(name: str, m: dict) -> None:
+    aucs = m["auc_online"] + m["auc_frozen_local"]
+    if not all(0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError(f"{name}: an AUC outside [0, 1]: {aucs}")
+    if m["syncs"] < 1:
+        raise AssertionError(f"{name}: no sync")
+    if m["requests_served"] != m["harvested_samples"]:
+        raise AssertionError(f"{name}: served {m['requests_served']}, "
+                             f"harvested {m['harvested_samples']}")
+
+
+def online_vs_frozen(torch, dev) -> list:
+    """``run_online_vs_frozen`` on the card at ``BENCH_fedloop.json``'s
+    scale with the reference's default loop, fit and router configs, twice:
+    the second call must return the same dict. Then once at
+    ``test_online_scenario_smoke``'s scale with a model onboarded at phase
+    1: the pool ends at 3 models and every phase-1 route launches #1 on the
+    expanded head. Returns the rows of its runs."""
+    from repro_torch.fed import (ScenarioConfig, TrafficScenario,
+                                 run_online_vs_frozen)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import router_utility as ru
+    RU, PA = "router_utility", "paged_decode_attention"
+    cfg = ScenarioConfig(**ONLINE_SCENARIO)
+    n_req = sum(len(TrafficScenario(cfg).events(p))
+                for p in range(cfg.phases))
+    rows, runs = [], []
+    for i in (1, 2):
+        m, row = run_fit(torch, ops, f"online vs frozen run {i}",
+                         lambda: run_online_vs_frozen(cfg, device=dev),
+                         {RU: n_req, PA: None}, phase="online_vs_frozen")
+        rows.append(row)
+        runs.append(m)
+        _check_online("online_vs_frozen", m)
+    if runs[0] != runs[1]:
+        raise AssertionError(f"online_vs_frozen: a second run differs: "
+                             f"{runs[0]} vs {runs[1]}")
+
+    # onboarding: the head each route launch sees
+    ocfg = ScenarioConfig(**ONBOARD_SCENARIO)
+    osc = TrafficScenario(ocfg, n_reserved_models=1)
+    n_ev = [len(osc.events(p)) for p in range(ocfg.phases)]
+    heads = []
+    launch = ru.router_utility_cuda
+
+    def spy(h, acc_w, *a):
+        heads.append(int(acc_w.shape[1]))
+        return launch(h, acc_w, *a)
+    ru.router_utility_cuda = spy
+    try:
+        mo, row = run_fit(torch, ops, "online vs frozen onboarding",
+                          lambda: run_online_vs_frozen(
+                              ocfg, onboard_phase=1, local_steps=60,
+                              capacity=64, device=dev),
+                          {RU: sum(n_ev), PA: None},
+                          phase="online_vs_frozen")
+    finally:
+        ru.router_utility_cuda = launch
+    rows.append(row)
+    _check_online("online_vs_frozen onboarding", mo)
+    if mo["num_models_final"] != 3 or heads != [2] * n_ev[0] + [3] * n_ev[1]:
+        raise AssertionError(f"online_vs_frozen onboarding: M "
+                             f"{mo['num_models_final']}, heads per launch "
+                             f"{heads}")
+    emit({"phase": "online_vs_frozen", "scale": ONLINE_SCENARIO,
+          "seconds_per_run": [r["seconds"] for r in rows[:2]],
+          "same_dict_twice": True, **runs[0],
+          "bench_fedloop_json": _bench_fedloop(),
+          "onboarding": {"scale": ONBOARD_SCENARIO, **mo,
+                         "launches_by_head": {"2": heads.count(2),
+                                              "3": heads.count(3)},
+                         "seconds": rows[2]["seconds"]}})
+    return rows
+
+
 def _flip_labels(torch, train: dict, mask) -> dict:
     """Label-flip fault at the data layer: the masked clients report
     inverted accuracies (acc → 1 − acc on their real rows), as
@@ -3008,6 +3289,9 @@ def main() -> None:
     emit({"phase": "harvest_failover_done",
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    paths += fedloop_full_width(torch, dev, pool)
+    emit({"phase": "fedloop_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     paths.append(resilience_full_width(torch, dev, pool))
     paths += spec_full_width(torch, dev, pool)
     del pool
@@ -3026,6 +3310,10 @@ def main() -> None:
     paths += cohort_fit(torch, dev, split)
     emit({"phase": "fed_fits_done", "resilience_seconds": t1 - t0,
           "cohort_seconds": time.perf_counter() - t1})
+    t0 = time.perf_counter()
+    paths += online_vs_frozen(torch, dev)
+    emit({"phase": "online_vs_frozen_done",
+          "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     profile_fit(torch, dev, split)
     emit({"phase": "profile_fit_done", "seconds": time.perf_counter() - t0})

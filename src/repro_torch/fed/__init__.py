@@ -9,10 +9,18 @@
     (``RoutedServer(harvest=...)``) and their stacked federated view.
   * ``faults`` — the seeded ``FaultPlan`` and the ``CorruptUpdates``
     wrapper that applies Byzantine corruption inside the fit.
+  * ``loop`` — the ``FedLoop`` scheduler: federated refits over the
+    harvested buffers interleaved with engine decode chunks, hot-swapping
+    router state into the route path; ``save()``/``restore()`` checkpoint
+    the whole loop for bit-identical crash recovery.
+  * ``scenarios`` — traffic simulators (client heterogeneity, drift,
+    stragglers, mid-run model onboarding, power-law populations, the
+    engine-chaos schedule) and the online-vs-frozen comparison behind
+    ``BENCH_fedloop.json``.
 
-Not ported yet: the ``FedLoop`` scheduler with ``personalize_client``
-(``repro/fed/loop.py``) and the traffic scenarios (``repro/fed/
-scenarios.py``). Their names raise ``NotImplementedError``.
+``loop`` and ``scenarios`` import the serving stack, so they are exposed
+lazily — ``core/federated.py`` importing ``repro_torch.fed.aggregators``
+for its default strategy stays cycle-free.
 """
 from repro_torch.fed.aggregators import (Aggregator, BufferedAsyncAggregator,
                                          FedAvgAggregator,
@@ -29,9 +37,12 @@ __all__ = [
     "SecureAggAggregator", "TrimmedMeanAggregator", "MedianAggregator",
     "NormClipAggregator", "BufferedAsyncAggregator",
     "FaultPlan", "CorruptUpdates", "EvalBuffer", "HarvestStore",
+    "FedLoop", "FedLoopConfig", "personalize_client",
+    "ScenarioConfig", "TrafficScenario", "run_online_vs_frozen",
+    "PowerLawScenario",
 ]
 
-_NOT_PORTED = {
+_LAZY = {
     "FedLoop": "loop", "FedLoopConfig": "loop", "personalize_client": "loop",
     "ScenarioConfig": "scenarios", "TrafficScenario": "scenarios",
     "run_online_vs_frozen": "scenarios", "PowerLawScenario": "scenarios",
@@ -39,11 +50,9 @@ _NOT_PORTED = {
 
 
 def __getattr__(name):
-    mod = _NOT_PORTED.get(name)
+    mod = _LAZY.get(name)
     if mod is None:
         raise AttributeError(
             f"module 'repro_torch.fed' has no attribute {name!r}")
-    raise NotImplementedError(
-        f"repro_torch.fed.{name} (repro/fed/{mod}.py) is not ported yet: "
-        "the FedLoop scheduler and the traffic scenarios are slice 10 of "
-        "the port")
+    import importlib
+    return getattr(importlib.import_module(f"repro_torch.fed.{mod}"), name)

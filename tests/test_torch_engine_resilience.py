@@ -15,10 +15,10 @@ traffic and the replay loop that ``chip_smoke.py`` runs on the card.
 
 The gateway's harvest accounting of these outcomes (the zero-score
 record of an expiry, cancel and shedding dropping the registration) is
-held against the reference in ``tests/test_torch_fed_gateway.py``. Not
-here yet: the reference cases that need ``FedLoop`` or
-``engine_chaos_schedule``, which wait for the port's ``fed/loop.py`` and
-``fed/scenarios.py``.
+held against the reference in ``tests/test_torch_fed_gateway.py``; the
+reference cases that need ``FedLoop`` are in
+``tests/test_torch_fed_loop.py``, those of ``engine_chaos_schedule`` in
+``tests/test_torch_fed_scenarios.py``.
 """
 import importlib.util
 import json
