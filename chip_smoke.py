@@ -53,8 +53,23 @@ corruption table (fedavg, trimmed mean and median, clean and under sign
 flip, at the §1 width; all four strategies under all four fault classes
 at ``bench_resilience``'s own scale, beside ``BENCH_resilience.json``'s
 values), full-width fits with per-round cohorts of 5 and 3 clients, and
-``run_online_vs_frozen`` at ``BENCH_fedloop.json``'s scale (twice, the
-same dict) and with a model onboarded mid-run.
+``run_online_vs_frozen`` at ``BENCH_fedloop.json``'s scale, at the
+reference's smoke scale (twice, the same dict) and with a model onboarded
+mid-run.
+
+Once the served pool is freed, LM training and its drivers:
+``launch.train.train_loop`` on qwen2-1.5b at full width (bf16, 28 layers,
+batch 8 × seq 256, 4 steps; a checkpoint saved and restored bit for bit),
+the ``train_lm`` twin (the ~100M f32 config, batch 16 × seq 512, lr 1e-3;
+its loss must fall) and the ``launch/serve.py`` twin on qwen2-1.5b (batch
+4, prompt 32, 16 new tokens through ``decode_attention``). After the
+online-vs-frozen run, the RouterBench harness: ``bench_routerbench``'s
+full configuration offline (four families) and online ("mf", "elo"),
+beside ``BENCH_routerbench.json``; its smoke configuration offline twice
+(the same dict; federated AIQ ≥ client-local AIQ for "mf" in every
+scenario); and ``offline_routerbench`` on the §1 corpus, whose
+adversarial scenario finds donors without a (Q, Q, d) tensor (its peak
+memory is printed).
 
 Then the engine under overload and speculative decode: the verify's
 attention at the served shapes of qwen2-1.5b, yi-6b and qwen3-8b (the
@@ -92,6 +107,7 @@ outside a checkout. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -2378,9 +2394,10 @@ def failover(torch, dev, pool, router) -> list:
 # ---------------------------------------------------------------------------
 
 #: the full-width loop's traffic: 4 clients over the 2-model pool at d_emb
-#: 768, two phases of 64 arrivals
+#: 768, two phases of 32 arrivals (64 until the script's time had to make
+#: room for slice 11's phases)
 FEDLOOP_SCENARIO = dict(n_clients=4, n_tasks=8, n_models=2, d_emb=768,
-                        n_queries=2000, queries_per_phase=64, phases=2,
+                        n_queries=2000, queries_per_phase=32, phases=2,
                         max_new=MAX_NEW)
 #: ``BENCH_fedloop.json``'s scale (``bench_fedloop(smoke=False)``)
 ONLINE_SCENARIO = dict(n_clients=8, queries_per_phase=256, phases=3,
@@ -2586,11 +2603,13 @@ def _check_online(name: str, m: dict) -> None:
 
 def online_vs_frozen(torch, dev) -> list:
     """``run_online_vs_frozen`` on the card at ``BENCH_fedloop.json``'s
-    scale with the reference's default loop, fit and router configs, twice:
-    the second call must return the same dict. Then once at
-    ``test_online_scenario_smoke``'s scale with a model onboarded at phase
-    1: the pool ends at 3 models and every phase-1 route launches #1 on the
-    expanded head. Returns the rows of its runs."""
+    scale with the reference's default loop, fit and router configs, once;
+    at ``test_online_scenario_smoke``'s scale twice (the second call must
+    return the same dict; this check ran at the larger scale until the
+    script's time had to make room for slice 11's phases); and once at
+    that scale with a model onboarded at phase 1: the pool ends at 3
+    models and every phase-1 route launches #1 on the expanded head.
+    Returns the rows of its runs."""
     from repro_torch.fed import (ScenarioConfig, TrafficScenario,
                                  run_online_vs_frozen)
     from repro_torch.kernels import ops
@@ -2599,20 +2618,26 @@ def online_vs_frozen(torch, dev) -> list:
     cfg = ScenarioConfig(**ONLINE_SCENARIO)
     n_req = sum(len(TrafficScenario(cfg).events(p))
                 for p in range(cfg.phases))
-    rows, runs = [], []
+    big, row = run_fit(torch, ops, "online vs frozen",
+                       lambda: run_online_vs_frozen(cfg, device=dev),
+                       {RU: n_req, PA: None}, phase="online_vs_frozen")
+    _check_online("online_vs_frozen", big)
+    rows, runs = [row], []
+    ocfg = ScenarioConfig(**ONBOARD_SCENARIO)
+    n_small = sum(len(TrafficScenario(ocfg).events(p))
+                  for p in range(ocfg.phases))
     for i in (1, 2):
-        m, row = run_fit(torch, ops, f"online vs frozen run {i}",
-                         lambda: run_online_vs_frozen(cfg, device=dev),
-                         {RU: n_req, PA: None}, phase="online_vs_frozen")
+        m, row = run_fit(torch, ops, f"online vs frozen smoke run {i}",
+                         lambda: run_online_vs_frozen(ocfg, device=dev),
+                         {RU: n_small, PA: None}, phase="online_vs_frozen")
         rows.append(row)
         runs.append(m)
-        _check_online("online_vs_frozen", m)
+        _check_online("online_vs_frozen smoke", m)
     if runs[0] != runs[1]:
         raise AssertionError(f"online_vs_frozen: a second run differs: "
                              f"{runs[0]} vs {runs[1]}")
 
     # onboarding: the head each route launch sees
-    ocfg = ScenarioConfig(**ONBOARD_SCENARIO)
     osc = TrafficScenario(ocfg, n_reserved_models=1)
     n_ev = [len(osc.events(p)) for p in range(ocfg.phases)]
     heads = []
@@ -2638,13 +2663,17 @@ def online_vs_frozen(torch, dev) -> list:
                              f"{mo['num_models_final']}, heads per launch "
                              f"{heads}")
     emit({"phase": "online_vs_frozen", "scale": ONLINE_SCENARIO,
-          "seconds_per_run": [r["seconds"] for r in rows[:2]],
-          "same_dict_twice": True, **runs[0],
+          "seconds": rows[0]["seconds"], **big,
           "bench_fedloop_json": _bench_fedloop(),
+          "smoke_twice": {"scale": ONBOARD_SCENARIO,
+                          "same_dict_twice": True,
+                          "seconds_per_run": [r["seconds"]
+                                              for r in rows[1:3]],
+                          **runs[0]},
           "onboarding": {"scale": ONBOARD_SCENARIO, **mo,
                          "launches_by_head": {"2": heads.count(2),
                                               "3": heads.count(3)},
-                         "seconds": rows[2]["seconds"]}})
+                         "seconds": rows[3]["seconds"]}})
     return rows
 
 
@@ -3230,6 +3259,351 @@ def arch_reduced_f32(torch, dev) -> list:
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: LM training and its drivers, the RouterBench harness
+# ---------------------------------------------------------------------------
+
+#: where the LM phases write their checkpoints (inside the checkout,
+#: removed after each phase)
+SCRATCH = ROOT / ".chip_smoke_tmp"
+TRAIN_LM_STEPS = 30      # train_lm's own default is 300
+
+
+class _Stamps:
+    """A stdout that passes every line through and keeps the host clock
+    at which each line ended: the per-step times of ``train_loop``, whose
+    ``float(loss)`` waits for the device at every step."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._buf = out, [], ""
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def _stamped(fn):
+    """(fn's result, [(host time, line), ...] of what it printed)."""
+    import contextlib
+    st = _Stamps(sys.stdout)
+    with contextlib.redirect_stdout(st):
+        out = fn()
+    return out, st.lines
+
+
+def _step_times(t0: float, lines) -> list:
+    """Seconds of each training step, from the stamps of its log lines."""
+    ts = [t for t, ln in lines if ln.startswith("step ")]
+    return [b - a for a, b in zip([t0] + ts[:-1], ts)]
+
+
+def lm_train_full_width(torch, dev) -> list:
+    """``launch.train.train_loop`` on qwen2-1.5b at full width (28 layers,
+    bf16, vocab 151,936; the data vocabulary capped at 8,192 as in the
+    reference), batch 8 × seq 256, 4 steps, checkpoint at the end: the
+    losses are finite, the restored parameters equal the trained ones bit
+    for bit, and earlier phases must hold less than one qwen2-1.5b's
+    weights when it begins (the served pool is freed). Prints seconds per
+    step, tokens/s, the peak memory and what was held. The training path runs no kernel of the port (prefill attention is the
+    plain ``chunked_attention``, as in the reference)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optim import tree_leaves
+    cfg = get_config("qwen2-1.5b")
+    steps, batch, seq = 4, 8, 256
+    path = SCRATCH / "qwen2_1_5b.msgpack"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # what earlier phases still hold
+    if held >= 2 * 1_777_088_000:
+        raise AssertionError(f"lm_train_full_width: earlier phases still "
+                             f"hold {held} bytes, a served model's worth")
+    t0 = time.perf_counter()
+    ((params, hist), lines), row = run_fit(
+        torch, ops, "lm_train_full_width",
+        lambda: _stamped(lambda: train_loop(
+            cfg, steps=steps, batch=batch, seq=seq, lr=3e-4, seed=0,
+            log_every=1, ckpt_path=path, device=dev)), {}, phase="lm")
+    peak = torch.cuda.max_memory_allocated()
+    per_step = _step_times(t0, lines)
+    save_s = lines[-1][0] - [t for t, ln in lines
+                             if ln.startswith("step ")][-1]
+    if len(hist) != steps or not all(math.isfinite(v) for v in hist):
+        raise AssertionError(f"lm_train_full_width: losses {hist}")
+    t1 = time.perf_counter()
+    blob = ckpt.restore(path, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    got, want = tree_leaves(blob["params"]), tree_leaves(params)
+    if blob["step"] != steps or len(got) != len(want) or not all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want)):
+        raise AssertionError("lm_train_full_width: the restored checkpoint "
+                             "differs from the trained parameters")
+    nbytes = path.stat().st_size
+    n_params = sum(t.numel() for t in want)
+    del blob, got, want, params
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    steady = statistics.median(per_step[1:])
+    emit({"phase": "lm_train_full_width", "arch": cfg.name,
+          "layers": cfg.n_layers,
+          "params": n_params, "dtype": cfg.dtype, "batch": batch, "seq": seq,
+          "losses": hist, "step_seconds": per_step,
+          "seconds_per_step": steady, "tokens_per_s": batch * seq / steady,
+          "peak_mib": peak / 2 ** 20, "held_before_mib": held / 2 ** 20,
+          "peak_above_start_mib": (peak - held) / 2 ** 20,
+          "checkpoint_bytes": nbytes,
+          "save_seconds": save_s, "restore_seconds": restore_s,
+          "round_trip_bit_identical": True})
+    return [row]
+
+
+def train_lm_phase(torch, dev) -> list:
+    """The ``train_lm`` twin (``CFG_100M``: 12 layers, d 768, ff 3,072,
+    vocab 8,192, f32) through its ``main`` at its own batch 16 × seq 512
+    and lr 1e-3, ``TRAIN_LM_STEPS`` steps (its default is 300): the last
+    loss must be below the first. Prints the losses, seconds per step and
+    tokens/s."""
+    import shutil
+    from repro_torch import train_lm
+    from repro_torch.kernels import ops
+    path = SCRATCH / "repro_100m.msgpack"
+    t0 = time.perf_counter()
+    (hist, lines), row = run_fit(
+        torch, ops, "train_lm",
+        lambda: _stamped(lambda: train_lm.main([
+            "--steps", str(TRAIN_LM_STEPS), "--ckpt", str(path)])), {},
+        phase="lm")
+    per_step = _step_times(t0, lines)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    if not (all(math.isfinite(v) for v in hist) and hist[-1] < hist[0]):
+        raise AssertionError(f"train_lm: loss {hist[0]} → {hist[-1]}")
+    # the mean step between the second and the last stamped log line (the
+    # first window holds the first step's warm-up)
+    st = [(int(ln.split()[1]), t) for t, ln in lines if ln.startswith("step ")]
+    if len(st) < 3:
+        raise AssertionError(f"train_lm: {len(st)} step lines, need 3")
+    steady = (st[-1][1] - st[1][1]) / (st[-1][0] - st[1][0])
+    emit({"phase": "train_lm", "config": train_lm.CFG_100M.name,
+          "steps": len(hist),
+          "batch": 16, "seq": 512, "loss_first": hist[0],
+          "loss_last": hist[-1], "losses_every_10": hist[::10],
+          "log_intervals_s": per_step, "seconds_per_step": steady,
+          "tokens_per_s": 16 * 512 / steady})
+    return [row]
+
+
+def lm_serve_full_width(torch, dev) -> list:
+    """The ``launch/serve.py`` twin on qwen2-1.5b at full width: batch 4,
+    prompt 32, 16 new tokens, through its ``main`` on the card. Every
+    decode step runs ``decode_attention`` once per layer (16 × 28 = 448
+    launches); tokens lie in the vocabulary."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_config("qwen2-1.5b")
+    B, S, T = 4, 32, 16
+    out, row = run_fit(
+        torch, ops, "lm_serve_full_width",
+        lambda: serve.main(["--arch", cfg.name, "--batch", str(B),
+                            "--prompt-len", str(S), "--new-tokens", str(T)]),
+        {"decode_attention": T * cfg.n_layers}, phase="lm")
+    toks = out["tokens"]
+    if toks.shape != (B, T + 1) or int(toks.min()) < 0 or int(
+            toks.max()) >= cfg.vocab:
+        raise AssertionError(f"lm_serve_full_width: tokens {toks.tolist()}")
+    emit({"phase": "lm_serve_full_width", "arch": cfg.name, "batch": B,
+          "prompt": S, "new_tokens": T,
+          "prefill_seconds": out["prefill_s"],
+          "decode_seconds": out["decode_s"],
+          "decode_tok_per_s": out["tok_per_s"],
+          "decode_attention_launches": row["launches"]["decode_attention"]})
+    return [row]
+
+
+RB_FULL = dict(rcfg=dict(d_emb=24, num_models=8, hidden=(48, 48),
+                         dropout=0.0, k_local=6, k_global=10, mf_rank=16),
+               fcfg=dict(num_clients=6, rounds=40, batch_size=32, lr=3e-3,
+                         seed=0),
+               corpus=dict(n_models=8, n_queries=1200, d_emb=24, n_tasks=6),
+               local_steps=300)
+RB_SMOKE = dict(rcfg=dict(d_emb=16, num_models=6, hidden=(48, 48),
+                          dropout=0.0, k_local=5, k_global=8, mf_rank=12),
+                fcfg=dict(num_clients=4, rounds=30, batch_size=32, lr=3e-3,
+                          seed=0),
+                corpus=dict(n_models=6, n_queries=800, d_emb=16, n_tasks=5),
+                local_steps=200)
+RB_ONLINE = dict(n_clients=4, n_models=3, d_emb=24, n_queries=800,
+                 queries_per_phase=96, phases=2, embed_sigma=0.9,
+                 test_queries=48, seed=0)
+#: kernels an offline RouterBench run launches: #1 in the MLP, MF and Elo
+#: routes, #4 in K-means' predict and route, #5 in the K-means and Elo fits
+RB_KERNELS = ("router_utility", "kmeans_assign", "kmeans_assign_reduce")
+
+
+def _offline(torch, dev, conf: dict, name: str, **kw) -> tuple:
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.evalbench import make_pool_corpus, offline_routerbench
+    from repro_torch.kernels import ops
+    corpus = kw.pop("corpus", None)
+    if corpus is None:
+        corpus = make_pool_corpus(1, device=dev, **conf["corpus"])
+    return run_fit(
+        torch, ops, name,
+        lambda: offline_routerbench(
+            0, rcfg=RouterConfig(**conf["rcfg"]),
+            fcfg=FedConfig(**conf["fcfg"]), corpus=corpus,
+            local_steps=conf["local_steps"], device=dev, **kw),
+        dict.fromkeys(RB_KERNELS), phase="routerbench")
+
+
+def _check_offline(name: str, res: dict) -> None:
+    for fam, r in res["families"].items():
+        for side in ("federated", "client_local"):
+            for sc, v in r[side].items():
+                if not 0.0 <= v["aiq"] <= 1.0:
+                    raise AssertionError(f"{name}: {fam} {side} {sc} AIQ "
+                                         f"{v['aiq']!r}")
+        if r["clients_fit"] < 1:
+            raise AssertionError(f"{name}: {fam} fitted no client")
+
+
+def _aiq_table(res: dict) -> dict:
+    """{family: {side: {scenario: AIQ}}} plus each attack's flip rate."""
+    return {fam: {**{side: {sc: v["aiq"] for sc, v in r[side].items()}
+                     for side in ("federated", "client_local")},
+                  "flip_rate": r["federated"]["adversarial"]["flip_rate"],
+                  "clients_fit": r["clients_fit"]}
+            for fam, r in res["families"].items()}
+
+
+def routerbench_reference_scale(torch, dev) -> list:
+    """``bench_routerbench`` on the card. Its full configuration
+    (``benchmarks/perf_suite.py:992-998``: 8 models, 1,200 queries, d_emb
+    24, 6 clients, 40 rounds, 300 local steps; all four families) offline,
+    and online for "mf" and "elo" (``:1015-1022``); each AIQ printed beside
+    ``BENCH_routerbench.json``'s (JAX on a CPU, read as data: a
+    comparison, not a check). Its smoke configuration (``:984-990``)
+    offline twice: the two dicts must be equal, and the reference's CI
+    floor must hold — federated AIQ ≥ client-local AIQ for "mf" in every
+    scenario."""
+    from repro_torch.evalbench import online_routerbench
+    from repro_torch.fed import ScenarioConfig
+    from repro_torch.kernels import ops
+    ref = json.loads((ROOT / "BENCH_routerbench.json").read_text())["meta"]
+    rows = []
+    full, row = _offline(torch, dev, RB_FULL, "routerbench full config")
+    rows.append(row)
+    _check_offline("routerbench full config", full)
+    online = {}
+    for fam in ("mf", "elo"):
+        # Elo's fit clusters the queries (#4, #5); MF's launches neither
+        owns = {"router_utility": None, "paged_decode_attention": None,
+                **({"kmeans_assign": None, "kmeans_assign_reduce": None}
+                   if fam == "elo" else {})}
+        res, row = run_fit(
+            torch, ops, f"routerbench online {fam}",
+            lambda: online_routerbench(
+                family=fam, cfg=ScenarioConfig(**RB_ONLINE),
+                local_steps=150, capacity=256, device=dev),
+            owns, phase="routerbench")
+        rows.append(row)
+        _check_online(f"routerbench online {fam}", res)
+        online[fam] = {k: res[k] for k in (
+            "auc_online_final", "auc_frozen_local_final", "auc_gap_final",
+            "syncs", "requests_served")}
+        online[fam]["seconds"] = row["seconds"]
+    smoke = []
+    for i in (1, 2):
+        res, row = _offline(torch, dev, RB_SMOKE,
+                            f"routerbench smoke config run {i}")
+        rows.append(row)
+        smoke.append(res)
+    if smoke[0] != smoke[1]:
+        raise AssertionError("routerbench smoke config: a second run "
+                             "returned another dict")
+    _check_offline("routerbench smoke config", smoke[0])
+    mf = smoke[0]["families"]["mf"]
+    floor = {sc: (mf["federated"][sc]["aiq"], mf["client_local"][sc]["aiq"])
+             for sc in ("clean", "paraphrase", "adversarial")}
+    emit({"phase": "routerbench_reference_scale",
+          "full": {"aiq": _aiq_table(full),
+                   "reference": {k: v for k, v in full["reference"].items()
+                                 if k != "models"},
+                   "seconds": rows[0]["seconds"],
+                   "bench_routerbench_json": {
+                       "aiq": _aiq_table(ref),
+                       "reference": ref["reference"],
+                       "offline_wall_seconds": ref["offline_wall_seconds"]}},
+          "online": online,
+          "bench_routerbench_json_online": ref["online"],
+          "smoke": {"aiq": _aiq_table(smoke[0]), "same_dict_twice": True,
+                    "mf_fed_vs_local": floor,
+                    "seconds": [r["seconds"] for r in rows[-2:]]}})
+    for sc, (fed, loc) in floor.items():
+        if not fed >= loc:
+            raise AssertionError(f"routerbench smoke config: mf {sc} "
+                                 f"federated AIQ {fed!r} < client-local "
+                                 f"{loc!r}")
+    return rows
+
+
+def routerbench_full_width(torch, dev, corpus) -> list:
+    """``offline_routerbench`` on the §1 corpus (36,000 queries, 11 models,
+    d_emb 768, ``FedConfig()``: 10 clients, 30 rounds; 100 local steps,
+    cut from the harness's 400 for the script's time),
+    all four families. Prints every AIQ, the #1, #4 and #5 launches, and
+    the adversarial step's peak memory above what was allocated when it
+    began: the donor search's (2,048, 9,005) float64 blocks, where the
+    reference's (Q, Q, d) difference tensor would take
+    9,005² × 768 × 8 bytes ≈ 498 GB."""
+    from repro_torch.evalbench import harness
+    attack = harness.adversarial_queries
+    peaks = []
+
+    def measured(router, x, lam, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = attack(router, x, lam, **kw)
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base,
+                      tuple(x.shape)))
+        return out
+    harness.adversarial_queries = measured
+    try:
+        res, row = _offline(torch, dev, {"rcfg": {}, "fcfg": {},
+                                         "local_steps": 100},
+                            "routerbench full width", corpus=corpus)
+    finally:
+        harness.adversarial_queries = attack
+    _check_offline("routerbench full width", res)
+    Q, d = peaks[0][1]
+    qqd = Q * Q * d * 8
+    worst = max(p for p, _ in peaks)
+    if worst >= qqd / 100:
+        raise AssertionError(f"routerbench full width: an attack took "
+                             f"{worst} bytes")
+    emit({"phase": "routerbench_full_width", "test_rows": Q,
+          "d_emb": d, "aiq": _aiq_table(res),
+          "reference": {k: v for k, v in res["reference"].items()
+                        if k != "models"},
+          "attacks": len(peaks), "attack_peak_mib": worst / 2 ** 20,
+          "qqd_tensor_gib": qqd / 2 ** 30,
+          "launches_1_4_5": {k: row["launches"][k] for k in RB_KERNELS}})
+    return [row]
+
+
 def main() -> None:
     try:
         import torch
@@ -3296,6 +3670,17 @@ def main() -> None:
     paths += spec_full_width(torch, dev, pool)
     del pool
     emit({"phase": "engine_paths_done", "seconds": time.perf_counter() - t0})
+    # LM training and its drivers, once the served pool is freed: the
+    # engines and servers of the earlier paths hold it through reference
+    # cycles until the collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths += lm_train_full_width(torch, dev)
+    paths += train_lm_phase(torch, dev)
+    paths += lm_serve_full_width(torch, dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_done", "seconds": time.perf_counter() - t0})
     paths.append(flash_path(torch, dev))
     t0 = time.perf_counter()
     fit_rows, fitted = fit_phase(torch, dev, split)
@@ -3314,6 +3699,12 @@ def main() -> None:
     paths += online_vs_frozen(torch, dev)
     emit({"phase": "online_vs_frozen_done",
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    paths += routerbench_reference_scale(torch, dev)
+    t1 = time.perf_counter()
+    paths += routerbench_full_width(torch, dev, corpus)
+    emit({"phase": "routerbench_done", "reference_scale_seconds": t1 - t0,
+          "full_width_seconds": time.perf_counter() - t1})
     t0 = time.perf_counter()
     profile_fit(torch, dev, split)
     emit({"phase": "profile_fit_done", "seconds": time.perf_counter() - t0})

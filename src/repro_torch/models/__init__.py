@@ -7,5 +7,6 @@ from repro_torch.models.model import (  # noqa: F401
     init_decode_cache,
     init_paged_cache,
     init_params,
+    loss_fn,
     param_count,
 )

@@ -74,10 +74,18 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
-                      q_chunk: int = 512):
-    """Query-chunked attention in the grouped layout (KV never expanded to
-    the query heads). q: (B,S,Hq,hd); k,v: (B,Sk,Hkv,hd).
-    Returns (B,S,Hq*hd)."""
+                      q_chunk: int = 512, layout: str = "grouped"):
+    """Query-chunked attention. q: (B,S,Hq,hd); k,v: (B,Sk,Hkv,hd).
+    Returns (B,S,Hq*hd). ``layout="grouped"`` never expands KV to the
+    query heads; ``"flat"`` repeats each KV head to its g query heads
+    first (the reference's layout for head-sharded meshes) and computes
+    the same values."""
+    if layout == "flat":
+        g = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    elif layout != "grouped":
+        raise ValueError(f"unknown attention layout {layout!r}")
     B, S, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -105,12 +113,13 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, *, window: Optional[int] = None,
-                 q_chunk: int = 512, return_kv: bool = False):
+                 q_chunk: int = 512, return_kv: bool = False,
+                 layout: str = "grouped"):
     q, k, v = _project_qkv(p, x, cfg, positions)
     win = window if window is not None else (
         cfg.sliding_window if cfg.sliding_window_always else None)
     out = chunked_attention(q, k, v, causal=cfg.causal, window=win,
-                            q_chunk=q_chunk) @ p["wo"]
+                            q_chunk=q_chunk, layout=layout) @ p["wo"]
     if return_kv:  # prefill: post-RoPE k/v become the decode cache
         return out, {"k": k.transpose(1, 2).contiguous(),
                      "v": v.transpose(1, 2).contiguous()}

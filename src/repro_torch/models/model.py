@@ -9,13 +9,16 @@ along a leading ``n_units`` axis (the reference builds that axis with
 ``vmap``), so weights convert one to one (``repro_torch.convert``). The
 unit loop indexes that axis — views, no copies — where the reference
 scans over it. MoE layers run ``moe_mode="dense"`` on every serving path,
-as in the reference.
+as in the reference. ``loss_fn`` is the LM training loss; the forward pass
+is differentiable (``torch.autograd``) and recomputes each unit in the
+backward pass under ``remat=True``.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, generator, resolve_device
@@ -175,8 +178,9 @@ def _ffn(cfg: ModelConfig, ffn: str, p, x, moe_mode: str):
 
 def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
             moe_mode: str = "dense", q_chunk: int = 512,
-            window: Optional[int] = None, logits_last_only: bool = False,
-            last_pos=None, return_cache: bool = False):
+            window: Optional[int] = None, remat: bool = False,
+            logits_last_only: bool = False, last_pos=None,
+            return_cache: bool = False, attn_layout: str = "grouped"):
     """Returns (logits, aux_loss[, cache]).
 
     logits_last_only — only one position per row is unembedded: the last,
@@ -184,29 +188,34 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
     tensor of per-row positions (coalesced prefill of right-padded prompts
     of different true lengths). return_cache — also return the decode
     cache: per layer of a unit, K/V leaves (n_units, B, Hkv, S, hd) or SSM
-    leaves ``conv`` (n_units, B, d_conv − 1, C) and ``state``."""
+    leaves ``conv`` (n_units, B, d_conv − 1, C) and ``state``.
+    remat — recompute each unit in the backward pass instead of keeping
+    its activations (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint(unit)``): the same values and gradients, less memory.
+    attn_layout — ``"grouped"`` or ``"flat"`` (``chunked_attention``)."""
     if embeds is None:
         embeds = L.embed(params["embed"], tokens)
     x = embeds.to(L.dtype_of(cfg))
     B, Sq, _ = x.shape
     positions = torch.arange(Sq, device=x.device)[None, :]
     n_units, pat = block_pattern(cfg)
-    aux = torch.zeros((), device=x.device)
-    caches = {f"l{i}": [] for i in range(len(pat))}
-    for u in range(n_units):
+
+    def unit(x, aux, u):
+        caches = []
         for i, (mixer, ffn) in enumerate(pat):
             lp = _layer(params["blocks"][f"l{i}"], u)
             h = _norm(cfg, lp["norm1"], x)
             if mixer == "attn":
                 h = A.attn_forward(lp["mixer"], h, cfg, positions,
                                    window=window, q_chunk=q_chunk,
-                                   return_kv=return_cache)
+                                   return_kv=return_cache,
+                                   layout=attn_layout)
             else:
                 h = S.mamba_forward(lp["mixer"], h, cfg,
                                     return_state=return_cache)
             if return_cache:
                 h, c = h
-                caches[f"l{i}"].append(c)
+                caches.append(c)
             x = x + h
             if ffn is not None:
                 h, a = _ffn(cfg, ffn, lp["ffn"], _norm(cfg, lp["norm2"], x),
@@ -214,6 +223,17 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
                 if a is not None:
                     aux = aux + a
                 x = x + h
+        return x, aux, caches
+
+    aux = torch.zeros((), device=x.device)
+    caches = {f"l{i}": [] for i in range(len(pat))}
+    for u in range(n_units):
+        if remat:
+            x, aux, cs = checkpoint(unit, x, aux, u, use_reentrant=False)
+        else:
+            x, aux, cs = unit(x, aux, u)
+        for i, c in enumerate(cs):
+            caches[f"l{i}"].append(c)
     x = _norm(cfg, params["final_norm"], x)
     if logits_last_only:
         if last_pos is None:
@@ -230,6 +250,32 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
                  for name, cs in caches.items()}
         return logits, aux, cache
     return logits, aux
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            moe_mode: str = "dense", q_chunk: int = 512,
+            remat: bool = True, attn_layout: str = "grouped"):
+    """The LM training loss. batch: {"tokens" or "embeds", "labels",
+    optional "mask"}: the mean next-token NLL in f32 (log-sum-exp minus
+    the gold logit), over the mask's weight (at least 1) when a mask is
+    given, plus the MoE layers' auxiliary loss."""
+    logits, aux = forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+        moe_mode=moe_mode, q_chunk=q_chunk, remat=remat,
+        attn_layout=attn_layout)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=nll.device)
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        denom = nll.numel()
+    return torch.sum(nll) / denom + aux
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +311,7 @@ def init_paged_cache(cfg: ModelConfig, pages: int, page_size: int,
     return init_decode_cache(cfg, pages, page_size, dtype, device=device)
 
 
-def _decode(params, cache, cfg, tokens, embeds, attn):
+def _decode(params, cache, cfg, tokens, embeds, attn, moe_mode="dense"):
     """One pass of every unit over decode-step inputs: ``attn`` runs an
     attention layer against its cache; Mamba layers step their state."""
     if embeds is None:
@@ -284,14 +330,15 @@ def _decode(params, cache, cfg, tokens, embeds, attn):
             x = x + h
             if ffn is not None:
                 h, _ = _ffn(cfg, ffn, lp["ffn"], _norm(cfg, lp["norm2"], x),
-                            "dense")
+                            moe_mode)
                 x = x + h
     x = _norm(cfg, params["final_norm"], x)
     return L.unembed(params["embed"], x), cache
 
 
 def decode_step(params: dict, cache: dict, cfg: ModelConfig, *,
-                tokens=None, embeds=None, pos, rolling: bool = False):
+                tokens=None, embeds=None, pos, rolling: bool = False,
+                moe_mode: str = "dense"):
     """One-token decode. tokens: (B,1) int or embeds: (B,1,d); pos: int32
     scalar or (B,) vector (continuous batching). Writes the cache in place;
     returns (logits (B,1,V), cache)."""
@@ -299,7 +346,8 @@ def decode_step(params: dict, cache: dict, cfg: ModelConfig, *,
                           device=params_device(params))
     return _decode(params, cache, cfg, tokens, embeds,
                    lambda p, h, c: A.attn_decode_step(p, h, c, pos, cfg,
-                                                      rolling=rolling))
+                                                      rolling=rolling),
+                   moe_mode)
 
 
 def decode_step_paged(params: dict, cache: dict, cfg: ModelConfig, *,

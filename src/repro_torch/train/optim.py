@@ -10,11 +10,16 @@ Batched clients: when ``state.step`` has a leading axis (one step count
 per client, params stacked along the same axis), the global norm of the
 clip is taken per client over that client's slices, and the bias
 correction uses each client's own step count.
+
+``lr`` is a float or, as in the reference, a callable of the step count
+(``cosine_schedule``): it is called with the new step (a () or (N,) int32
+tensor), and a (N,) result scales each client's slices by its own rate.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+import math
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -43,6 +48,18 @@ def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (like.ndim - v.ndim))
 
 
+def _lr_at(lr, step: torch.Tensor):
+    """The learning rate at ``step``: ``lr`` itself, or ``lr(step)``."""
+    return lr(step) if callable(lr) else lr
+
+
+def _scaled(lr, x: torch.Tensor) -> torch.Tensor:
+    """lr · x, a (N,) rate broadcast against a leaf of N stacked clients."""
+    if isinstance(lr, torch.Tensor) and lr.ndim:
+        lr = _bcast(lr, x)
+    return lr * x
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor      # () or (N,) int32
     m: Any
@@ -51,7 +68,7 @@ class AdamWState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class AdamW:
-    lr: float = 1e-3
+    lr: Union[float, Callable] = 1e-3
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -73,7 +90,7 @@ class AdamW:
         lead = step.ndim
         if self.clip_norm is not None:
             grads = clip_by_global_norm(grads, self.clip_norm, lead=lead)
-        b1, b2, lr = self.b1, self.b2, self.lr
+        b1, b2, lr = self.b1, self.b2, _lr_at(self.lr, step)
         m = tree_map(lambda mu, g: b1 * mu + (1 - b1) * g.float(),
                      state.m, grads)
         v = tree_map(lambda nu, g: b2 * nu + (1 - b2) * torch.square(
@@ -86,14 +103,14 @@ class AdamW:
             ms, vs = _bcast(mhat_scale, p), _bcast(vhat_scale, p)
             u = (mu * ms) / (torch.sqrt(nu * vs) + self.eps)
             u = u + self.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype)
+            return (p.float() - _scaled(lr, u)).to(p.dtype)
 
         return tree_map(upd, params, m, v), AdamWState(step, m, v)
 
 
 @dataclasses.dataclass(frozen=True)
 class SGD:
-    lr: float = 1e-2
+    lr: Union[float, Callable] = 1e-2
     clip_norm: Optional[float] = None
 
     def init(self, params, *, batch: Optional[int] = None) -> torch.Tensor:
@@ -105,7 +122,8 @@ class SGD:
         step = state + 1
         if self.clip_norm is not None:
             grads = clip_by_global_norm(grads, self.clip_norm, lead=step.ndim)
-        new = tree_map(lambda p, g: (p.float() - self.lr * g.float()).to(
+        lr = _lr_at(self.lr, step)
+        new = tree_map(lambda p, g: (p.float() - _scaled(lr, g.float())).to(
             p.dtype), params, grads)
         return new, step
 
@@ -136,3 +154,17 @@ def clip_by_global_norm(grads, max_norm: float, *, lead: int = 0):
     gn = global_norm(grads, lead=lead)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: g * _bcast(scale, g).to(g.dtype), grads)
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    floor: float = 0.1):
+    """Linear warmup to ``base_lr`` over ``warmup`` steps, then a cosine
+    decay to ``floor · base_lr`` at ``total``; f32, as the reference's."""
+    def lr(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0, 1)
+        cos = base_lr * (floor + (1 - floor) * 0.5 * (
+            1 + torch.cos(math.pi * frac)))
+        return torch.where(step < warmup, warm, cos)
+    return lr

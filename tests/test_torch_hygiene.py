@@ -63,7 +63,12 @@ def test_port_has_every_slice_module():
             # slice 10: the FedLoop scheduler, the scenarios, the drivers
             "fed/loop.py", "fed/scenarios.py", "launch/__init__.py",
             "launch/fed_serve.py", "launch/fed_train.py",
-            "routed_serving.py"]
+            "routed_serving.py",
+            # slice 11: the RouterBench harness, LM training and its drivers
+            "evalbench/__init__.py", "evalbench/pools.py",
+            "evalbench/metrics.py", "evalbench/perturb.py",
+            "evalbench/harness.py", "train/lm_data.py", "launch/steps.py",
+            "launch/train.py", "launch/serve.py", "train_lm.py"]
     pkg = ROOT / "src" / "repro_torch"
     assert [w for w in want if not (pkg / w).is_file()] == []
     # slices 7 to 9 grew modules that slices 1 and 2 began: what each must
@@ -75,7 +80,8 @@ def test_port_has_every_slice_module():
                                     "verify_attention",
                                     "verify_attention_paged"],
             "models/model.py": ["decode_verify", "decode_verify_paged",
-                                "block_pattern", "active_param_count"],
+                                "block_pattern", "active_param_count",
+                                "loss_fn"],
             "models/layers.py": ["init_layernorm", "layernorm"],
             "serve/engine.py": ["Outcome", "cancel", "status", "counters",
                                 "_expire", "_preempt", "_grow_for_chunk",
@@ -94,7 +100,16 @@ def test_port_has_every_slice_module():
             "fed/scenarios.py": ["ScenarioConfig", "TrafficScenario",
                                  "PowerLawScenario", "engine_chaos_schedule",
                                  "run_online_vs_frozen", "_frontier_auc"],
-            "train/checkpoint.py": ["packb", "unpackb"]}
+            "train/checkpoint.py": ["packb", "unpackb"],
+            "train/optim.py": ["cosine_schedule"],
+            "evalbench/perturb.py": ["paraphrase_drift", "nearest_donor",
+                                     "adversarial_queries"],
+            "evalbench/harness.py": ["eval_scenarios", "_aiq_only",
+                                     "offline_routerbench",
+                                     "online_routerbench"],
+            "launch/steps.py": ["make_train_step", "make_prefill_step",
+                                "make_decode_step"],
+            "launch/train.py": ["train_loop", "main"]}
     missing = []
     for f, names in defs.items():
         tree = ast.parse((pkg / f).read_text())
@@ -186,3 +201,34 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
             main([])
     m = run_online_vs_frozen(cfg, device="cpu", local_steps=2)
     assert m["requests_served"] == m["harvested_samples"]
+
+    # slice 11: the RouterBench harness, LM training and the three drivers
+    from repro_torch import train_lm
+    from repro_torch.evalbench import (make_pool_corpus, offline_routerbench,
+                                       online_routerbench)
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.train import train_loop
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pool_corpus(0, n_models=2, n_queries=8, d_emb=4)
+    corpus = make_pool_corpus(0, n_models=2, n_queries=60, n_tasks=2,
+                              d_emb=8, device="cpu")
+    assert corpus["x"].device == torch.device("cpu")
+    bcfg = RouterConfig(d_emb=8, num_models=2, k_local=2, k_global=2)
+    bfcfg = FedConfig(num_clients=2, rounds=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offline_routerbench(0, rcfg=bcfg, fcfg=bfcfg, families=("kmeans",),
+                            corpus=corpus)
+    res = offline_routerbench(0, rcfg=bcfg, fcfg=bfcfg, families=("kmeans",),
+                              corpus=corpus, device="cpu")
+    assert res["families"]["kmeans"]["clients_fit"] >= 1
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        online_routerbench(family="mlp", cfg=cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_loop(TINY, steps=1, batch=1, seq=4)
+    assert len(train_loop(TINY, steps=1, batch=1, seq=4, log_every=10,
+                          device="cpu")[1]) == 1
+    for main, argv in ((train.main, ["--arch", "qwen2-1.5b", "--reduced"]),
+                       (serve.main, ["--arch", "qwen2-1.5b", "--reduced"]),
+                       (train_lm.main, ["--quick"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
