@@ -98,6 +98,17 @@ internvl2-2b: engine tokens equal per-request tokens, SSM and hybrid
 per-call tokens at prompts of 1–5 tokens equal token-by-token decode; and
 hubert's forward is finite.
 
+Step accounting and the clients mesh (slice 12): ``launch/dryrun.py`` on
+the meta device for every arch at decode_32k and qwen2-1.5b at all four
+input shapes (counts, the ok / skipped / error tally); one decode step of
+each served model at 8 slots counted on the card under ``OpCosts``, equal
+to its meta count, and the served pair's weight-read term equal to
+``profile``'s bound; the counted FLOPs, MFU and bytes of the qwen2-1.5b
+step ``lm_train_full_width`` timed; and the §1-width MLP and K-means fits
+through ``fit_federated(mesh=client_mesh())`` on a one-process nccl
+group, equal to the in-process fits bit for bit, their all-gathers
+counted against the analytic bytes.
+
 Output: JSON lines, then the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, a ``kernels`` line, and as the last line
@@ -107,6 +118,7 @@ outside a checkout. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -118,9 +130,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s, and op/s by input type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+
+
+@functools.lru_cache(maxsize=None)
+def data_sheet() -> dict:
+    """The data-sheet row (dense peaks: op/s by input type under "flops",
+    HBM bytes/s) of the card this runs on, from the checkout's
+    ``repro_torch.launch.mesh``; raises for a card with no row."""
+    import torch
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import device_peaks
+    return device_peaks(torch.cuda.get_device_name(0))
 
 PROMPTS = [
     "translate this sentence to french please",
@@ -137,6 +158,9 @@ PROMPTS = [
     "name a famous painting",
 ]
 MAX_NEW = 16
+#: prompts of the print-only engine-vs-solo comparison at full width (cut
+#: from all 12: each solo generation is a per-call decode)
+SOLO = PROMPTS[:4]
 
 
 def emit(obj) -> None:
@@ -259,8 +283,8 @@ def check_close(torch, got, want, what: str, scale=None,
 
 
 def bound(bytes_moved: float, ops: float, dtype: str) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_bytes = bytes_moved / data_sheet()["hbm_bytes_per_s"] * 1e3
+    t_ops = ops / data_sheet()["flops"][dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1077,7 +1101,7 @@ def run_path(torch, ops, name: str, fn, owns: dict, others: tuple) -> dict:
 
 def main_path(torch, dev) -> tuple:
     """Every path of the slice at full width, each with its own launch
-    counts. Returns the ``serve`` rows and the pool."""
+    counts. Returns the ``serve`` rows, the pool and the ``profile`` row."""
     from repro_torch import routers
     from repro_torch.config import RouterConfig
     from repro_torch.configs import get_config
@@ -1178,16 +1202,16 @@ def main_path(torch, dev) -> tuple:
 
     # full width, bf16: engine tokens vs per-request tokens (print only —
     # random weights leave near-ties in the argmax)
-    eng = srv.generate(PROMPTS, lam=0.0, max_new_tokens=MAX_NEW)
+    eng = srv.generate(SOLO, lam=0.0, max_new_tokens=MAX_NEW)
     same = total = 0
-    for p, r in zip(PROMPTS, eng["results"]):
+    for p, r in zip(SOLO, eng["results"]):
         solo = srv.generate([p], lam=0.0, max_new_tokens=MAX_NEW,
                             engine=False)["results"][0]["tokens"]
         same += sum(a == b for a, b in zip(r["tokens"], solo))
         total += MAX_NEW
-    emit({"phase": "full_width_engine_vs_solo", "agree": same / total})
-    profile_decode(torch, srv, pool)
-    return rows, pool
+    emit({"phase": "full_width_engine_vs_solo", "prompts": len(SOLO),
+          "agree": same / total})
+    return rows, pool, profile_decode(torch, srv, pool)
 
 
 def _traced_step(torch, srv, lanes) -> tuple:
@@ -1212,11 +1236,12 @@ def _traced_step(torch, srv, lanes) -> tuple:
                           if e.device_type == cuda]
 
 
-def profile_decode(torch, srv, pool) -> None:
+def profile_decode(torch, srv, pool) -> dict:
     """Where a decode step's time goes at full width: both lanes hold 8
     requests; one engine step (one 8-token chunk per lane, 16 decode
     steps) is timed bare, then traced with torch.profiler. Reports the
-    device's busy time by kernel and its idle share of the bare step."""
+    device's busy time by kernel and its idle share of the bare step.
+    Returns the printed row."""
     eng = srv.engine
     bare, traced, kern = _traced_step(torch, srv, range(len(pool)))
     busy = sum(ms for _, ms, _ in kern)
@@ -1236,16 +1261,18 @@ def profile_decode(torch, srv, pool) -> None:
         g[0] += ms
         g[1] += n
     weight_bytes = sum(_nbytes(pm.params) for pm in pool)
-    emit({"phase": "profile", "decode_steps": 2 * eng.ecfg.chunk,
-          "step_ms_bare": bare * 1e3, "step_ms_traced": traced * 1e3,
-          "device_busy_ms": busy,
-          "device_idle_share": (1 - busy / (bare * 1e3)) if busy else None,
-          "weights_read_bound_ms": eng.ecfg.chunk * weight_bytes
-          / HBM_BYTES_PER_S * 1e3,
-          "groups": {k: {"ms": v[0], "launches": v[1]}
-                     for k, v in groups.items()},
-          "top": [{"kernel": n[:90], "ms": ms, "launches": c}
-                  for n, ms, c in sorted(kern, key=lambda r: -r[1])[:8]]})
+    row = {"phase": "profile", "decode_steps": 2 * eng.ecfg.chunk,
+           "step_ms_bare": bare * 1e3, "step_ms_traced": traced * 1e3,
+           "device_busy_ms": busy,
+           "device_idle_share": (1 - busy / (bare * 1e3)) if busy else None,
+           "weights_read_bound_ms": eng.ecfg.chunk * weight_bytes
+           / data_sheet()["hbm_bytes_per_s"] * 1e3,
+           "groups": {k: {"ms": v[0], "launches": v[1]}
+                      for k, v in groups.items()},
+           "top": [{"kernel": n[:90], "ms": ms, "launches": c}
+                   for n, ms, c in sorted(kern, key=lambda r: -r[1])[:8]]}
+    emit(row)
+    return row
 
 
 def _nbytes(tree) -> int:
@@ -2129,6 +2156,7 @@ def resilience_full_width(torch, dev, pool) -> dict:
 HARVEST_N = 64          # requests of the harvest phase, over 4 clients
 FED_ROUNDS = 10         # full-width robust and cohort fits (FedConfig: 30)
 REF_ROUNDS = 40         # bench_resilience's own
+COHORT_ROUNDS = 5       # the cohort fits (cut from FED_ROUNDS)
 
 
 def _score(rid: int, m: int) -> float:
@@ -2801,7 +2829,7 @@ def resilience_table(torch, dev, split) -> list:
 
 
 def cohort_fit(torch, dev, split) -> list:
-    """At full width: one 10-round MLP fit each with ``cohort`` None, 5 and
+    """At full width: one 5-round MLP fit each with ``cohort`` None, 5 and
     3 under ``FedConfig(participation=1.0)``; each must aggregate stacks
     of exactly its cohort's size every round (10 without one). Prints the
     seconds per fit."""
@@ -2825,15 +2853,15 @@ def cohort_fit(torch, dev, split) -> list:
         _, row = run_fit(torch, ops, f"cohort {cohort}", lambda: (
             routers.fit_federated(routers.make("mlp", RouterConfig()),
                                   split["train"], fcfg, gen=gen, device=dev,
-                                  rounds=FED_ROUNDS, cohort=cohort,
+                                  rounds=COHORT_ROUNDS, cohort=cohort,
                                   aggregator=spy), None), {})
         rows.append(row)
-        want = [cohort or fcfg.num_clients] * FED_ROUNDS
+        want = [cohort or fcfg.num_clients] * COHORT_ROUNDS
         if spy.sizes != want:
             raise AssertionError(f"cohort {cohort}: aggregated stacks of "
                                  f"{spy.sizes}, expected {want}")
         secs[str(cohort)] = row["seconds"]
-    emit({"phase": "cohort_fit", "rounds": FED_ROUNDS,
+    emit({"phase": "cohort_fit", "rounds": COHORT_ROUNDS,
           "seconds_per_fit": secs})
     return rows
 
@@ -3038,7 +3066,8 @@ def profile_moe_decode(torch, srv, m: int) -> dict:
            "device_busy_ms": busy / n,
            "device_idle_share": (1 - busy / (bare * 1e3)) if busy else None,
            "weight_gb": wbytes / 1e9,
-           "weights_read_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3,
+           "weights_read_bound_ms": wbytes
+           / data_sheet()["hbm_bytes_per_s"] * 1e3,
            "top": [{"kernel": k[:90], "ms": ms / n, "launches": c / n}
                    for k, ms, c in sorted(kern, key=lambda r: -r[1])[:6]]}
     row["bound_over_busy"] = (row["weights_read_bound_ms"]
@@ -3304,7 +3333,7 @@ def _step_times(t0: float, lines) -> list:
     return [b - a for a, b in zip([t0] + ts[:-1], ts)]
 
 
-def lm_train_full_width(torch, dev) -> list:
+def lm_train_full_width(torch, dev) -> tuple:
     """``launch.train.train_loop`` on qwen2-1.5b at full width (28 layers,
     bf16, vocab 151,936; the data vocabulary capped at 8,192 as in the
     reference), batch 8 × seq 256, 4 steps, checkpoint at the end: the
@@ -3312,7 +3341,8 @@ def lm_train_full_width(torch, dev) -> list:
     for bit, and earlier phases must hold less than one qwen2-1.5b's
     weights when it begins (the served pool is freed). Prints seconds per
     step, tokens/s, the peak memory and what was held. The training path runs no kernel of the port (prefill attention is the
-    plain ``chunked_attention``, as in the reference)."""
+    plain ``chunked_attention``, as in the reference). Returns (rows, the
+    step's measured seconds and peak memory for ``accounting_train``)."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3365,7 +3395,8 @@ def lm_train_full_width(torch, dev) -> list:
           "checkpoint_bytes": nbytes,
           "save_seconds": save_s, "restore_seconds": restore_s,
           "round_trip_bit_identical": True})
-    return [row]
+    return [row], {"batch": batch, "seq": seq, "seconds_per_step": steady,
+                   "peak_bytes": peak, "held_bytes": held}
 
 
 def train_lm_phase(torch, dev) -> list:
@@ -3436,7 +3467,7 @@ RB_FULL = dict(rcfg=dict(d_emb=24, num_models=8, hidden=(48, 48),
                fcfg=dict(num_clients=6, rounds=40, batch_size=32, lr=3e-3,
                          seed=0),
                corpus=dict(n_models=8, n_queries=1200, d_emb=24, n_tasks=6),
-               local_steps=300)
+               local_steps=50)     # bench_routerbench's own: 300
 RB_SMOKE = dict(rcfg=dict(d_emb=16, num_models=6, hidden=(48, 48),
                           dropout=0.0, k_local=5, k_global=8, mf_rank=12),
                 fcfg=dict(num_clients=4, rounds=30, batch_size=32, lr=3e-3,
@@ -3446,6 +3477,8 @@ RB_SMOKE = dict(rcfg=dict(d_emb=16, num_models=6, hidden=(48, 48),
 RB_ONLINE = dict(n_clients=4, n_models=3, d_emb=24, n_queries=800,
                  queries_per_phase=96, phases=2, embed_sigma=0.9,
                  test_queries=48, seed=0)
+RB_ONLINE_STEPS = 50     # bench_routerbench's own: 150
+RB_WIDE_STEPS = 50       # the §1-width run's (the harness's own: 400)
 #: kernels an offline RouterBench run launches: #1 in the MLP, MF and Elo
 #: routes, #4 in K-means' predict and route, #5 in the K-means and Elo fits
 RB_KERNELS = ("router_utility", "kmeans_assign", "kmeans_assign_reduce")
@@ -3490,8 +3523,9 @@ def _aiq_table(res: dict) -> dict:
 def routerbench_reference_scale(torch, dev) -> list:
     """``bench_routerbench`` on the card. Its full configuration
     (``benchmarks/perf_suite.py:992-998``: 8 models, 1,200 queries, d_emb
-    24, 6 clients, 40 rounds, 300 local steps; all four families) offline,
-    and online for "mf" and "elo" (``:1015-1022``); each AIQ printed beside
+    24, 6 clients, 40 rounds; all four families; its 300 local steps cut
+    to 50) offline, and online for "mf" and "elo" (``:1015-1022``; its
+    150 local steps cut to 50); each AIQ printed beside
     ``BENCH_routerbench.json``'s (JAX on a CPU, read as data: a
     comparison, not a check). Its smoke configuration (``:984-990``)
     offline twice: the two dicts must be equal, and the reference's CI
@@ -3515,7 +3549,7 @@ def routerbench_reference_scale(torch, dev) -> list:
             torch, ops, f"routerbench online {fam}",
             lambda: online_routerbench(
                 family=fam, cfg=ScenarioConfig(**RB_ONLINE),
-                local_steps=150, capacity=256, device=dev),
+                local_steps=RB_ONLINE_STEPS, capacity=256, device=dev),
             owns, phase="routerbench")
         rows.append(row)
         _check_online(f"routerbench online {fam}", res)
@@ -3560,8 +3594,8 @@ def routerbench_reference_scale(torch, dev) -> list:
 
 def routerbench_full_width(torch, dev, corpus) -> list:
     """``offline_routerbench`` on the §1 corpus (36,000 queries, 11 models,
-    d_emb 768, ``FedConfig()``: 10 clients, 30 rounds; 100 local steps,
-    cut from the harness's 400 for the script's time),
+    d_emb 768, ``FedConfig()``: 10 clients, 30 rounds; ``RB_WIDE_STEPS``
+    local steps, cut from the harness's 400 for the script's time),
     all four families. Prints every AIQ, the #1, #4 and #5 launches, and
     the adversarial step's peak memory above what was allocated when it
     began: the donor search's (2,048, 9,005) float64 blocks, where the
@@ -3583,7 +3617,7 @@ def routerbench_full_width(torch, dev, corpus) -> list:
     harness.adversarial_queries = measured
     try:
         res, row = _offline(torch, dev, {"rcfg": {}, "fcfg": {},
-                                         "local_steps": 100},
+                                         "local_steps": RB_WIDE_STEPS},
                             "routerbench full width", corpus=corpus)
     finally:
         harness.adversarial_queries = attack
@@ -3604,6 +3638,273 @@ def routerbench_full_width(torch, dev, corpus) -> list:
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# Step accounting and the clients mesh
+# ---------------------------------------------------------------------------
+
+#: the dry-run's combos on the card's host: every arch at one shape, and
+#: qwen2-1.5b (the trained and served model) at all four
+ACCOUNTING_COMBOS = ([(a, "decode_32k") for a in (
+    "hubert-xlarge", "internvl2-2b", "jamba-1.5-large-398b",
+    "kimi-k2-1t-a32b", "mamba2-370m", "phi3.5-moe-42b-a6.6b", "qwen2-1.5b",
+    "qwen3-8b", "yi-34b", "yi-6b")]
+    + [("qwen2-1.5b", s) for s in ("train_4k", "prefill_32k", "long_500k")])
+DECODE_SLOTS, DECODE_CACHE = 8, 4096
+
+
+def accounting_start() -> tuple:
+    """Start ``launch/dryrun.py`` on the meta device (no GPU) for every arch
+    at decode_32k and qwen2-1.5b at all four input shapes, in a child
+    process: host work only, so it overlaps the card's phases until
+    ``accounting`` reads it. Returns (the process, its JSONL path, the
+    host clock at its start); an exit handler stops it if the script ends
+    first."""
+    import atexit
+    SCRATCH.mkdir(exist_ok=True)
+    path = SCRATCH / "dryrun_torch.jsonl"
+    path.unlink(missing_ok=True)
+    code = ("import pathlib, sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch import dryrun; "
+            f"dryrun.run_all({ACCOUNTING_COMBOS!r}, "
+            f"path=pathlib.Path({str(path)!r}), verbose=False)")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, time.perf_counter()
+
+
+def accounting(started: tuple) -> dict:
+    """Wait for ``accounting_start``'s dry-run and print each row's counts,
+    the ok / skipped / error tally (no error allowed), the seconds the
+    rows took and the wall time from its start. Returns the records by
+    (arch, shape)."""
+    proc, path, t0 = started
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"accounting: the dry-run exited "
+                             f"{proc.returncode}: {err[-3000:]}")
+    recs = [json.loads(ln) for ln in path.read_text().splitlines()]
+    keys = ("arch", "shape", "status", "reason", "n_params", "n_active",
+            "model_flops", "counted_flops", "useful_flops_ratio", "op_bytes",
+            "min_bytes", "state_bytes_global", "fits", "compute_s",
+            "memory_s", "dominant", "seconds", "error")
+    for r in recs:
+        emit({"phase": "accounting", **{k: r[k] for k in keys if k in r}})
+    tally = {st: sum(r["status"] == st for r in recs)
+             for st in ("ok", "skipped", "error")}
+    emit({"phase": "accounting_done", "tally": tally,
+          "seconds": sum(r["seconds"] for r in recs),
+          "wall_since_start": time.perf_counter() - t0})
+    if len(recs) != len(ACCOUNTING_COMBOS) or tally["error"] \
+            or tally["skipped"] != 1:
+        raise AssertionError(f"accounting: {len(recs)} rows, {tally}")
+    return {(r["arch"], r["shape"]): r for r in recs}
+
+
+def accounting_decode(torch, dev, pool, prof: dict) -> list:
+    """One ``make_decode_step`` of each served model (qwen2-1.5b, yi-6b;
+    its weights on the card) at 8 slots over a 4,096-position cache, under
+    ``OpCosts``: its FLOPs, bytes and kernel calls equal the meta count of
+    the same shapes, and #2 launches once per layer (counted by formula).
+    The served pair's weight-read term (``chunk`` decode steps of every
+    weight, the data sheet's HBM rate) equals ``profile``'s
+    ``weights_read_bound_ms``. Returns a row per decode step with its
+    launch counts."""
+    from repro_torch.config import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import device_peaks
+    from repro_torch.launch.op_analysis import roofline_terms
+    from repro_torch.models import model as mdl
+    shape = InputShape("served", DECODE_CACHE, DECODE_SLOTS, "decode")
+    one = {"data": 1, "model": 1}
+    wbytes, rows = 0, []
+    for pm in pool:
+        cfg = pm.cfg
+        inputs = {"cache": mdl.init_decode_cache(cfg, DECODE_SLOTS,
+                                                 DECODE_CACHE, device=dev),
+                  "tokens": torch.zeros((DECODE_SLOTS, 1), dtype=torch.int32,
+                                        device=dev),
+                  "pos": torch.tensor(100, dtype=torch.int32, device=dev)}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card, _ = dryrun.count_step(cfg, shape, pm.params, inputs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        params = dryrun.abstract_params(cfg)
+        meta, _ = dryrun.count_step(cfg, shape, params,
+                                    SP.input_shapes(cfg, shape, one)[0])
+        wbytes += dryrun.tree_bytes(params)
+        rows.append({"phase": "accounting_card", "part": "decode",
+                     "path": f"accounting_card decode {cfg.name}",
+                     "slots": DECODE_SLOTS, "cache": DECODE_CACHE,
+                     "card": card.totals(), "meta": meta.totals(),
+                     "kernels": card.kernels, "launches": launches,
+                     "seconds": dt})
+        emit(rows[-1])
+        del inputs
+        if card.totals() != meta.totals() or card.kernels != meta.kernels:
+            raise AssertionError(f"accounting_card {cfg.name}: the card "
+                                 "counts another step than the meta device")
+        want = {k: (cfg.n_layers if k == "decode_attention" else 0)
+                for k in launches}
+        if launches != want or card.kernels["decode_attention"]["calls"] \
+                != cfg.n_layers:
+            raise AssertionError(f"accounting_card {cfg.name}: launches "
+                                 f"{launches}, kernels {card.kernels}")
+    chunk = prof["decode_steps"] // 2
+    term = roofline_terms({"flops": 0, "op_bytes": chunk * wbytes},
+                          device_peaks(torch.cuda.get_device_name(0)),
+                          "bfloat16")["memory_s"] * 1e3
+    emit({"phase": "accounting_card", "part": "weight_read",
+          "weights_bytes": wbytes, "decode_steps": chunk,
+          "memory_term_ms": term,
+          "profile_weights_read_bound_ms": prof["weights_read_bound_ms"]})
+    if term != prof["weights_read_bound_ms"]:
+        raise AssertionError("accounting_card: the weight-read term differs "
+                             "from profile's bound")
+    return rows
+
+
+def accounting_train(torch, lm: dict, smi: str) -> None:
+    """The qwen2-1.5b train step that ``lm_train_full_width`` timed (batch
+    8 × seq 256), counted on the meta device: its FLOPs, ``model_flops``,
+    the MFU (counted FLOPs over the measured step seconds times the bf16
+    peak of the card's data sheet), ``min_bytes`` and the state bytes
+    beside the measured peak memory."""
+    from repro_torch.config import InputShape
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import device_peaks
+    from repro_torch.models import model as mdl
+    cfg = get_config("qwen2-1.5b")
+    shape = InputShape("lm_train", lm["seq"], lm["batch"], "train")
+    params = dryrun.abstract_params(cfg)
+    inputs = SP.input_shapes(cfg, shape, {"data": 1, "model": 1})[0]
+    costs, opt = dryrun.count_step(cfg, shape, params, inputs)
+    peaks = device_peaks(torch.cuda.get_device_name(0))
+    n_active = mdl.active_param_count(params, cfg)
+    state = dryrun.tree_bytes(params) + dryrun.tree_bytes(opt.m) \
+        + dryrun.tree_bytes(opt.v)
+    emit({"phase": "accounting_card", "part": "train", "arch": cfg.name,
+          "gpu": smi, "batch": lm["batch"], "seq": lm["seq"],
+          "counted_flops": costs.flops,
+          "model_flops": 6 * n_active * lm["batch"] * lm["seq"],
+          "seconds_per_step": lm["seconds_per_step"],
+          "mfu": costs.flops / (lm["seconds_per_step"]
+                                * peaks["flops"]["bfloat16"]),
+          "op_bytes": costs.op_bytes,
+          "min_bytes": dryrun.min_bytes(cfg, shape, params, inputs, opt),
+          "state_bytes": state,
+          "state_and_grad_bytes": state + dryrun.tree_bytes(params),
+          "peak_bytes_measured": lm["peak_bytes"],
+          "held_before_bytes": lm["held_bytes"]})
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def clients_mesh(torch, dev, split, fitted: dict, fit_rows: list) -> list:
+    """The §1-width MLP and K-means federated fits (``FedConfig()``, the
+    seeds of ``fit_phase``) through ``fit_federated(mesh=client_mesh())``
+    on a one-process nccl group, the slab placed by ``shard_clients``:
+    both equal ``fit_phase``'s in-process fits bit for bit (state and the
+    loss history's ends), the K-means fit launches #4 and #5 as in
+    process, the fitted routers' AUCs on the global test split equal the
+    in-process ones (scoring runs #4 for K-means; a route bucket #1 for
+    the MLP, #4 for K-means), and the all-gathers that ``OpCosts`` counts
+    in one round (the K-means fit: once) move exactly the analytic bytes.
+    Prints seconds per fit beside the in-process fit's."""
+    import torch.distributed as dist
+    from repro_torch import routers, sharding as shd
+    from repro_torch.config import FedConfig, RouterConfig
+    from repro_torch.core import policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.op_analysis import OpCosts
+    from repro_torch.train.optim import tree_leaves
+    rcfg, fcfg = RouterConfig(), FedConfig()
+    KA, KR, RU = "kmeans_assign", "kmeans_assign_reduce", "router_utility"
+    tg = split["test_global"]
+    secs = {r["path"]: r["seconds"] for r in fit_rows}
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    rows = []
+    try:
+        mesh = shd.client_mesh()
+        data = shd.shard_clients(split["train"], mesh)
+        N, D, d = split["train"]["x"].shape
+        n_active = max(1, int(round(fcfg.participation * N)))
+        for fam, seed, owns in (
+                ("mlp", 30, {}),
+                ("kmeans", 31, {KR: 2 * rcfg.kmeans_iters, KA: 3})):
+            name = f"fed {fam}"
+
+            def fit(rounds=None):
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                return routers.fit_federated(routers.make(fam, rcfg), data,
+                                             fcfg, gen=gen, device=dev,
+                                             rounds=rounds, mesh=mesh)
+            (router, hist), row = run_fit(torch, ops, f"clients_mesh {fam}",
+                                          fit, owns, phase="clients_mesh")
+            rows.append(row)
+            want = fitted[name]
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(router.state), tree_leaves(want.state)))
+            wrow = next(r for r in fit_rows if r["path"] == name)
+            if fam == "mlp":
+                same &= (hist["loss"][0] == wrow["loss_round1"]
+                         and hist["loss"][-1] == wrow["loss_round30"])
+            auc, _ = run_fit(torch, ops, f"clients_mesh {fam}: eval_router",
+                             lambda: policy.eval_router(
+                                 router.predict, tg["x"], tg["acc_table"],
+                                 tg["cost_table"])[2],
+                             {KA: 1} if fam == "kmeans" else {},
+                             phase="clients_mesh")
+            _, rrow = run_fit(torch, ops, f"clients_mesh {fam}: route bucket",
+                              lambda: router.route(tg["x"][:16], 1.0),
+                              {KA: 1} if fam == "kmeans" else {RU: 1},
+                              phase="clients_mesh")
+            want_auc = next(r["auc"] for r in fit_rows
+                            if r["path"] == f"{name}: eval_router (predict)")
+            # one round (the K-means fit: the whole fit) counted
+            with OpCosts() as oc:
+                fit(rounds=1)
+            coll = oc.totals()["collectives"]
+            if fam == "mlp":
+                n_par = sum(t.numel() for t in tree_leaves(router.state))
+                analytic = n_active * (n_par + 2) * 4
+            else:
+                kl, K, M = rcfg.k_local, rcfg.k_global, rcfg.num_models
+                analytic = 4 * N * (kl * d + kl + K * M * 3)
+            emit({"phase": "clients_mesh", "family": fam, "world": 1,
+                  "backend": dist.get_backend(),
+                  "bit_identical": same, "auc": auc, "auc_in_process":
+                  want_auc, "seconds_mesh": row["seconds"],
+                  "seconds_in_process": secs[name],
+                  "launches": row["launches"],
+                  "collectives_per_round": coll,
+                  "all_gather_bytes_analytic": analytic})
+            if not same or auc != want_auc:
+                raise AssertionError(f"clients_mesh {fam}: the mesh fit "
+                                     "differs from the in-process fit")
+            if coll != {"all-gather": analytic}:
+                raise AssertionError(f"clients_mesh {fam}: collectives "
+                                     f"{coll}, expected {analytic} bytes "
+                                     "of all-gather")
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
 def main() -> None:
     try:
         import torch
@@ -3617,6 +3918,7 @@ def main() -> None:
         fail(f"{ROOT} is not a checkout of the repository (no "
              "src/repro_torch)", 3)
     sys.path.insert(0, str(ROOT / "src"))
+    data_sheet()                # a card with no data sheet fails here
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -3650,10 +3952,20 @@ def main() -> None:
           "shapes": _decode_served(torch, F, da, dev)})
     verify_kernel(torch, dev)
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0})
+    new_phases = {}
+    # the dry-run is host work on the meta device: it runs beside the
+    # serving paths and is read after them
+    started = accounting_start()
 
     t0 = time.perf_counter()
-    paths, pool = main_path(torch, dev)
+    paths, pool, prof = main_path(torch, dev)
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    accounting(started)
+    new_phases["accounting_wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths += accounting_decode(torch, dev, pool, prof)
+    new_phases["accounting_card"] = time.perf_counter() - t0
     # the harvest and failover while the full-width pool is loaded
     t0 = time.perf_counter()
     fed_rows, srv_h = harvest_full_width(torch, dev, pool)
@@ -3676,16 +3988,25 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    paths += lm_train_full_width(torch, dev)
+    lm_rows, lm = lm_train_full_width(torch, dev)
+    paths += lm_rows
     paths += train_lm_phase(torch, dev)
     paths += lm_serve_full_width(torch, dev)
     torch.cuda.empty_cache()
     emit({"phase": "lm_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    accounting_train(torch, lm, smi)
+    new_phases["accounting_card"] += time.perf_counter() - t0
     paths.append(flash_path(torch, dev))
     t0 = time.perf_counter()
     fit_rows, fitted = fit_phase(torch, dev, split)
     paths += fit_rows
     emit({"phase": "fit_path_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    paths += clients_mesh(torch, dev, split, fitted, fit_rows)
+    new_phases["clients_mesh"] = time.perf_counter() - t0
+    emit({"phase": "new_phases_seconds", **new_phases,
+          "total": sum(new_phases.values())})
     t0 = time.perf_counter()
     paths += features_phase(torch, dev, corpus, split, fitted)
     emit({"phase": "features_done", "seconds": time.perf_counter() - t0})

@@ -23,9 +23,12 @@ The family's loss (``loss_fn``), a freeze mask (§6.3 model onboarding),
 the distillation anchor and the eligible-client mask (App. D.3 client
 onboarding) apply as in the reference, and so do per-round cohort
 sampling (``cohort=``) and the staleness vector of buffered-async
-strategies (``staleness=``). Not ported yet, each raising
-``NotImplementedError``: the sharded round (``mesh=``,
-``fedavg_round_sharded``, ``pad_client_axis``).
+strategies (``staleness=``).
+
+``fedavg(mesh=)`` runs every round through ``fedavg_round_sharded``:
+each process of a ``sharding.client_mesh`` trains the round's clients
+that it holds and the server aggregation runs replicated, equal to the
+in-process fit (see that function).
 """
 from __future__ import annotations
 
@@ -34,19 +37,13 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.config import FedConfig, RouterConfig
 from repro_torch.core import mlp_router as R
 from repro_torch.fed.aggregators import (FedAvgAggregator,
                                          GaussianDPAggregator, select_clients)
 from repro_torch.train.optim import (SGD, AdamW, AdamWState, masked_update,
                                      tree_leaves, tree_map)
-
-
-def _not_ported(**knobs) -> None:
-    for name, val in knobs.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported to the PyTorch fit yet")
 
 
 def dataset_sizes(data) -> torch.Tensor:
@@ -122,8 +119,8 @@ def _local_steps(params, data, gen, rcfg: RouterConfig, fcfg: FedConfig, opt,
             batch, g = data, None
         else:
             hi = torch.clamp(D, min=1)
-            u = torch.rand((N, fcfg.batch_size), generator=gen, device=dev,
-                           dtype=torch.float64)
+            u = shd.rand((N, fcfg.batch_size), gen, device=dev,
+                         dtype=torch.float64)
             idx = torch.minimum((u * hi[:, None]).long(), hi[:, None] - 1)
             batch = {k: v[rows, idx] for k, v in data.items()}
             g = gen
@@ -166,10 +163,51 @@ def _default_aggregator(dp_sigma: float):
     return FedAvgAggregator()
 
 
+def _strategy(aggregator, dp_sigma: float):
+    """The round's strategy: FedAvg by default, DP noise over any."""
+    if aggregator is None:
+        return _default_aggregator(dp_sigma)
+    if dp_sigma > 0.0:
+        return GaussianDPAggregator(sigma=dp_sigma, inner=aggregator)
+    return aggregator
+
+
 def _draw_cohort(gen, n: int, cohort: int) -> torch.Tensor:
     """The round's cohort: ``cohort`` of the ``n`` stacked clients, in the
     order of a permutation drawn from ``gen``."""
     return torch.randperm(n, generator=gen, device=gen.device)[:cohort]
+
+
+def _draw_active(gen, N: int, fcfg: FedConfig, dev, client_mask=None):
+    """The round's participants among N stacked clients: (0/1 mask (N,),
+    their stack positions in order)."""
+    n_active = max(1, int(round(fcfg.participation * N)))
+    drawn = torch.randperm(N, generator=gen, device=dev)[:n_active]
+    active = torch.zeros(N, device=dev)
+    active[drawn] = 1.0
+    if client_mask is not None:
+        mask = torch.as_tensor(client_mask, dtype=torch.float32, device=dev)
+        active = active * mask
+        if float(active.sum()) <= 0:
+            active = mask
+    return active, torch.nonzero(active).reshape(-1)
+
+
+def _aggregate(agg, params, client_params, client_loss, wts, idx, N, gen,
+               staleness):
+    """The server side of a round on the stack of its trained clients:
+    the strategy (restricted to their stack positions ``idx`` of N) and
+    the weighted mean loss."""
+    agg = select_clients(agg, idx, N)
+    extras = {}
+    if getattr(agg, "needs_prev", False):
+        extras["prev"] = params
+    if getattr(agg, "needs_staleness", False):
+        extras["staleness"] = (torch.zeros_like(wts) if staleness is None
+                               else staleness[idx].float())
+    new_params = agg(client_params, wts, gen, **extras)
+    wn = wts / torch.clamp(wts.sum(), min=1e-12)
+    return new_params, (client_loss * wn).sum()
 
 
 def fedavg_round(params, data, gen, rcfg: RouterConfig, fcfg: FedConfig,
@@ -201,49 +239,126 @@ def fedavg_round(params, data, gen, rcfg: RouterConfig, fcfg: FedConfig,
         if staleness is not None:
             staleness = staleness[pick]
         N = cohort
-    n_active = max(1, int(round(fcfg.participation * N)))
-    drawn = torch.randperm(N, generator=gen, device=dev)[:n_active]
-    active = torch.zeros(N, device=dev)
-    active[drawn] = 1.0
-    if client_mask is not None:
-        mask = torch.as_tensor(client_mask, dtype=torch.float32, device=dev)
-        active = active * mask
-        if float(active.sum()) <= 0:
-            active = mask
-    idx = torch.nonzero(active).reshape(-1)
+    active, idx = _draw_active(gen, N, fcfg, dev, client_mask)
     sub = {k: v[idx] for k, v in data.items()}
     client_params, client_loss = client_update(
         params, sub, gen, rcfg, fcfg, opt, max_steps, full_batch=full_batch,
         freeze=freeze, distill=distill, loss_fn=loss_fn)
     wts = dataset_sizes(sub) * active[idx]
-    if aggregator is None:
-        agg = _default_aggregator(dp_sigma)
-    elif dp_sigma > 0.0:
-        agg = GaussianDPAggregator(sigma=dp_sigma, inner=aggregator)
-    else:
-        agg = aggregator
-    agg = select_clients(agg, idx, N)
-    extras = {}
-    if getattr(agg, "needs_prev", False):
-        extras["prev"] = params
-    if getattr(agg, "needs_staleness", False):
-        extras["staleness"] = (torch.zeros_like(wts) if staleness is None
-                               else staleness[idx].float())
-    new_params = agg(client_params, wts, gen, **extras)
-    wn = wts / torch.clamp(wts.sum(), min=1e-12)
-    return new_params, (client_loss * wn).sum()
+    return _aggregate(_strategy(aggregator, dp_sigma), params, client_params,
+                      client_loss, wts, idx, N, gen, staleness)
 
 
-def fedavg_round_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "fedavg_round_sharded (the client mesh) is not ported to the "
-        "PyTorch fit yet")
+def pad_client_axis(data, multiple: int, staleness=None):
+    """Pad the stacked client axis up to a multiple of ``multiple`` with
+    empty clients (all-zero rows, ``w = 0`` — zero aggregation weight, so
+    they never move the params). Returns ``(data, staleness)`` — the
+    staleness vector, when given, pads with zeros. Used by mesh callers
+    whose organic client count doesn't divide the device axis."""
+    N = next(iter(data.values())).shape[0]
+    pad = (-N) % int(multiple)
+    if pad == 0:
+        return data, staleness
+    def grow(v):
+        v = torch.as_tensor(v)
+        return torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+    data = {k: grow(v) for k, v in data.items()}
+    if staleness is not None:
+        st = torch.as_tensor(staleness, dtype=torch.float32)
+        staleness = torch.cat([st, torch.zeros((pad,), device=st.device)])
+    return data, staleness
 
 
-def pad_client_axis(*args, **kwargs):
-    raise NotImplementedError(
-        "pad_client_axis (for the client mesh) is not ported to the "
-        "PyTorch fit yet")
+def _pack(tree_stack, *cols) -> tuple:
+    """A (L, ...) stack of trees and (L,) columns as one (L, k) matrix,
+    and the function that unpacks a (n, k) matrix of the same layout."""
+    leaves = tree_leaves(tree_stack)
+    L = leaves[0].shape[0]
+    dt = leaves[0].dtype
+    if any(t.dtype != dt for t in leaves + list(cols)):
+        raise TypeError("the gathered client stack must have one dtype")
+    flat = torch.cat([t.reshape(L, -1) for t in leaves]
+                     + [c.reshape(L, 1) for c in cols], dim=1)
+    sizes = [t[0].numel() for t in leaves]
+    shapes = [tuple(t.shape[1:]) for t in leaves]
+
+    def unpack(m: torch.Tensor):
+        n = m.shape[0]
+        parts = list(torch.split(m, sizes + [1] * len(cols), dim=1))
+        # contiguous, as the in-process stacks are (the same reduction
+        # orders in the aggregation)
+        it = iter(p.reshape((n,) + sh).contiguous()
+                  for p, sh in zip(parts, shapes))
+        return (tree_map(lambda _: next(it), tree_stack),
+                *(p.reshape(n).contiguous() for p in parts[len(sizes):]))
+    return flat, unpack
+
+
+def _pad_rows(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t (n, ...) with empty clients (zeros) appended up to ``width``."""
+    extra = width - t.shape[0]
+    if extra == 0:
+        return t
+    return torch.cat([t, torch.zeros((extra,) + tuple(t.shape[1:]),
+                                     dtype=t.dtype, device=t.device)])
+
+
+def fedavg_round_sharded(params, data, gen, rcfg: RouterConfig,
+                         fcfg: FedConfig, opt, max_steps: int, *, mesh,
+                         full_batch: bool = False, dp_sigma: float = 0.0,
+                         aggregator=None, loss_fn=None,
+                         cohort: Optional[int] = None, staleness=None):
+    """``fedavg_round`` over a ``"clients"`` mesh: each process trains the
+    round's clients that it holds and the server aggregation runs
+    replicated in every process. No client's data leaves its process.
+
+    Process q holds the clients of block q of the N stacked ones (its
+    ``Shard(0)`` block, or the same block of a stack every process
+    holds). Equal to the in-process round: every random draw (cohort,
+    active set, minibatch rows, dropout masks) is made replicated from the
+    same generator stream, over the whole stack of the round's active
+    clients that the in-process round draws for, and each process keeps
+    the rows of its own clients (``sharding.ClientRows``). The round
+    trains exactly the in-process set: process q trains its A_q active
+    clients, padded to L = max A_q with empty clients that draw nothing,
+    take no step and are dropped. The client updates, losses and dataset
+    sizes return to the server through one all-gather (data movement
+    only) and are put back in the in-process stack order, so every
+    ``Aggregator`` — robust, DP and staleness-aware ones included — sees
+    the in-process stack. The all-gather moves n · L rows of (the
+    router's parameters, the loss, the dataset size) a round."""
+    r, n = shd.clients_rank(mesh)
+    local, N, lo_own, whole = shd.local_block(data, mesh)
+    dev = local["x"].device
+    ids = torch.arange(N, device=dev)
+    if cohort is not None:
+        ids = _draw_cohort(gen, N, cohort)
+        if staleness is not None:
+            staleness = staleness[ids]
+    active, idx = _draw_active(gen, ids.shape[0], fcfg, dev)
+    A = idx.shape[0]
+    owner = ids[idx] // (N // n)                 # the process holding each
+    counts = torch.bincount(owner, minlength=n)
+    L = int(counts.max())
+    mine = torch.nonzero(owner == r).reshape(-1)   # stack positions, in order
+    held = ids[idx][mine] - (0 if whole else lo_own)
+    sub = {k: _pad_rows(v[held], L) for k, v in local.items()}
+    rows = gen if n == 1 else shd.ClientRows(gen, mine, A, L)
+    cp_loc, closs_loc = client_update(params, sub, rows, rcfg, fcfg, opt,
+                                      max_steps, full_batch=full_batch,
+                                      loss_fn=loss_fn)
+    flat, unpack = _pack(cp_loc, closs_loc, dataset_sizes(sub))
+    gathered = shd.all_gather_rows(flat, mesh)           # (n·L, k)
+    # row j of the round: its process's block, at its rank there
+    first = torch.cumsum(counts, 0) - counts
+    order = torch.argsort(owner, stable=True)
+    slot = torch.empty_like(order)
+    slot[order] = (owner[order] * L + torch.arange(A, device=dev)
+                   - first[owner[order]])
+    client_params, client_loss, sizes = unpack(gathered[slot])
+    wts = sizes * active[idx]
+    return _aggregate(_strategy(aggregator, dp_sigma), params, client_params,
+                      client_loss, wts, idx, ids.shape[0], gen, staleness)
 
 
 def fedavg(gen, data, rcfg: RouterConfig, fcfg: FedConfig, *,
@@ -261,10 +376,36 @@ def fedavg(gen, data, rcfg: RouterConfig, fcfg: FedConfig, *,
     (C >= N is full participation); ``staleness`` (N,) feeds a strategy
     that declares ``needs_staleness`` and is refused by any other. Returns
     (params, {"loss": per-round loss, "eval": ``eval_fn(params)`` after
-    every ``eval_every`` rounds and after the last})."""
-    _not_ported(mesh=mesh)
+    every ``eval_every`` rounds and after the last}).
+
+    ``mesh=`` (a ``sharding.client_mesh``) runs every round through
+    ``fedavg_round_sharded``: equal to the in-process fit on the same
+    generator seed in every process. It takes every knob but the ones
+    that carry trees or per-client masks (freeze, distill, client_mask),
+    and N (and a cohort) must divide the mesh."""
     rounds = rounds if rounds is not None else fcfg.rounds
     N = data["x"].shape[0]
+    if mesh is not None:
+        pytree_kw = [n for n, v in (("freeze", freeze), ("distill", distill),
+                                    ("client_mask", client_mask))
+                     if v is not None]
+        if pytree_kw:
+            raise ValueError(
+                f"the mesh path supports only hashable knobs — "
+                f"{', '.join(pytree_kw)} carry pytrees that would pin the "
+                "sharded round to one fit; drop mesh= to use the "
+                "in-process simulation with those")
+        _, n_dev = shd.clients_rank(mesh)
+        if N % n_dev != 0:
+            raise ValueError(
+                f"N={N} stacked clients do not divide the {n_dev}-device "
+                "clients mesh — pad the stack (pad_client_axis) or resize "
+                "the mesh")
+        if cohort is not None and cohort < N and cohort % n_dev != 0:
+            raise ValueError(
+                f"cohort={cohort} does not divide the {n_dev}-device "
+                "clients mesh — each device trains cohort/n_dev clients "
+                "per round, so pick a multiple")
     if cohort is not None:
         if client_mask is not None:
             raise ValueError(
@@ -299,13 +440,19 @@ def fedavg(gen, data, rcfg: RouterConfig, fcfg: FedConfig, *,
     opt = _make_opt(fcfg, optimizer)
     hist = {"loss": [], "eval": []}
     for t in range(rounds):
-        params, loss = fedavg_round(params, data, gen, rcfg, fcfg, opt,
-                                    max_steps, full_batch=full_batch,
-                                    freeze=freeze, distill=distill,
-                                    client_mask=client_mask,
-                                    dp_sigma=dp_sigma, aggregator=aggregator,
-                                    loss_fn=loss_fn, cohort=cohort,
-                                    staleness=staleness)
+        if mesh is not None:
+            params, loss = fedavg_round_sharded(
+                params, data, gen, rcfg, fcfg, opt, max_steps, mesh=mesh,
+                full_batch=full_batch, dp_sigma=dp_sigma,
+                aggregator=aggregator, loss_fn=loss_fn, cohort=cohort,
+                staleness=staleness)
+        else:
+            params, loss = fedavg_round(
+                params, data, gen, rcfg, fcfg, opt, max_steps,
+                full_batch=full_batch, freeze=freeze, distill=distill,
+                client_mask=client_mask, dp_sigma=dp_sigma,
+                aggregator=aggregator, loss_fn=loss_fn, cohort=cohort,
+                staleness=staleness)
         hist["loss"].append(float(loss))
         if eval_fn is not None and ((t + 1) % eval_every == 0
                                     or t + 1 == rounds):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.kernels import ops as kops
 
 
@@ -19,6 +20,7 @@ def _plusplus_init(gen: torch.Generator, X: torch.Tensor, w: torch.Tensor,
     """Weighted k-means++ seeding: R independent seedings of each slab of
     X (G, n, d) with weights w (G, n) → (G, R, K, d).
 
+    ``gen`` is a generator or a ``sharding.ClientRows`` over the slabs.
     Each pick is drawn with ``torch.multinomial`` in proportion to
     weight × the running min squared distance to the centers so far. A
     slab with no probability mass left (fewer distinct weighted points
@@ -31,8 +33,8 @@ def _plusplus_init(gen: torch.Generator, X: torch.Tensor, w: torch.Tensor,
     def pick(p):                                     # (G, R, n) → (G, R, d)
         p = torch.where(torch.isfinite(p), p, 0.0)
         p = torch.where(p.sum(-1, keepdim=True) > 0, p, fallback)
-        idx = torch.multinomial(p.reshape(G * R, n), 1,
-                                generator=gen).reshape(G, R)
+        idx = shd.multinomial1(p.reshape(G * R, n), gen,
+                               per=R).reshape(G, R)
         return X[rows, idx]
 
     cents = torch.zeros((G, R, K, d), dtype=X.dtype, device=X.device)

@@ -17,14 +17,15 @@ Stage (i) runs every client's restarts as one batch of Lloyd problems.
 The per-cluster sums are one-hot products (fixed summation order on the
 card, no atomics), so a fit with one generator seed reproduces bit for
 bit. ``client_mask`` (App. D.3) leaves masked clients out of the server's
-K-means and the statistics. ``fed_kmeans_router_sharded`` is not ported
-yet.
+K-means and the statistics. ``fed_kmeans_router_sharded`` runs stage (i)
+on each process's block of a clients mesh, equal to the in-process fit.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.config import RouterConfig
 from repro_torch.core.kmeans import _kmeans, kmeans
 from repro_torch.kernels import ops as kops
@@ -33,6 +34,13 @@ from repro_torch.kernels import ops as kops
 def _cluster_stats(centroids, data, K: int, M: int):
     """Sums/counts of acc & cost per (cluster, model) (Alg. 2 lines 9–12)
     for one client (flat data) or each client of a stack: (…, K, M) each."""
+    s = _cluster_sums(centroids, data, K, M)
+    return s[..., 1], s[..., 2], s[..., 0]
+
+
+def _cluster_sums(centroids, data, K: int, M: int):
+    """``_cluster_stats`` as one (…, K, M, 3) tensor of (count, acc sum,
+    cost sum)."""
     x = data["x"]
     lead = x.shape[:-1]                              # (D,) or (N, D)
     assign = kops.kmeans_assign(x.reshape(-1, x.shape[-1]), centroids)
@@ -41,8 +49,7 @@ def _cluster_stats(centroids, data, K: int, M: int):
     vals = torch.stack([w, w * data["acc"], w * data["cost"]], dim=-1)
     onehot = F.one_hot(idx, K * M).float()           # (…, D, K·M)
     s = torch.matmul(onehot.transpose(-1, -2), vals)  # (…, K·M, 3)
-    s = s.reshape(s.shape[:-2] + (K, M, 3))
-    return s[..., 1], s[..., 2], s[..., 0]
+    return s.reshape(s.shape[:-2] + (K, M, 3))
 
 
 def _finalize(a_sum, c_sum, n, c_max: float):
@@ -63,6 +70,16 @@ def _mask(client_mask, like: torch.Tensor) -> torch.Tensor:
                            device=like.device)
 
 
+def _local_uploads(gen, data, rcfg: RouterConfig):
+    """Alg. 2 stage (i) on a stack of clients at once (padded rows weigh
+    0): each client's (centroids (k_local, d), sizes (k_local,))."""
+    kl = rcfg.k_local
+    cents, _, assign = _kmeans(gen, data["x"], (data["w"] > 0).float(), kl,
+                               rcfg.kmeans_iters, rcfg.n_init)
+    sizes = (F.one_hot(assign, kl).float() * data["w"][..., None]).sum(1)
+    return cents, sizes
+
+
 def fed_centroids(gen, data, rcfg: RouterConfig, *, client_mask=None):
     """Alg. 2 stages (i)+(ii): local K-means per client (centroid, size
     uploads) → server size-weighted K-means → (k_global, d) centers.
@@ -71,10 +88,7 @@ def fed_centroids(gen, data, rcfg: RouterConfig, *, client_mask=None):
     partition of embedding space (K-means, Elo)."""
     N, D, d = data["x"].shape
     kl = rcfg.k_local
-    # (i) local K-means on every client at once (padded rows weigh 0)
-    cents, _, assign = _kmeans(gen, data["x"], (data["w"] > 0).float(), kl,
-                               rcfg.kmeans_iters, rcfg.n_init)
-    sizes = (F.one_hot(assign, kl).float() * data["w"][..., None]).sum(1)
+    cents, sizes = _local_uploads(gen, data, rcfg)
     if client_mask is not None:
         sizes = sizes * _mask(client_mask, sizes)[:, None]
     # (ii) server: size-weighted K-means over the uploaded centroids
@@ -100,10 +114,47 @@ def fed_kmeans_router(gen, data, rcfg: RouterConfig, *, num_models=None,
     return {"centroids": centroids, "A": A, "C": C, "n": n}
 
 
-def fed_kmeans_router_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "fed_kmeans_router_sharded (the client mesh) is not ported to the "
-        "PyTorch fit yet")
+def fed_kmeans_router_sharded(gen, data, rcfg: RouterConfig, *,
+                              num_models=None, mesh=None) -> dict:
+    """Algorithm 2 over a ``"clients"`` mesh: stage (i), the per-client
+    local K-means, runs on each process's block of the stack (on the card
+    through both K-means kernels); the (centroid, size) uploads and the
+    per-(cluster, model) statistics return to the server stages through
+    all-gathers in global client order (data movement only), and stages
+    (ii) and (iv) run replicated with the in-process summation order.
+    Stage (i)'s seeding draws are made over the whole stack
+    (``sharding.ClientRows``), so the result equals ``fed_kmeans_router``
+    on the same generator seed. ``data`` is the whole stack in every
+    process or DTensors from ``sharding.shard_clients``."""
+    M = num_models if num_models is not None else rcfg.num_models
+    r, n = shd.clients_rank(mesh)
+    local, N, _, whole = shd.local_block(data, mesh)
+    if N % n != 0:
+        raise ValueError(
+            f"N={N} stacked clients do not divide the {n}-device "
+            "clients mesh — pad the stack (federated.pad_client_axis) or "
+            "resize the mesh")
+    L = N // n
+    if whole:
+        local = {k: v[r * L:(r + 1) * L] for k, v in local.items()}
+    d, kl, K = local["x"].shape[-1], rcfg.k_local, rcfg.k_global
+    rows = gen if n == 1 else shd.ClientRows(
+        gen, torch.arange(r * L, (r + 1) * L), N, L)
+    cents_l, sizes_l = _local_uploads(rows, local, rcfg)
+    up = shd.all_gather_rows(torch.cat([cents_l.reshape(L, kl * d), sizes_l],
+                                       dim=1), mesh)
+    # contiguous, as the in-process uploads are (the same reduction orders)
+    cents, sizes = up[:, :kl * d].contiguous(), up[:, kl * d:].contiguous()
+    # (ii) the server's K-means over the uploads, replicated
+    centroids, _ = kmeans(gen, cents.reshape(N * kl, d), K,
+                          iters=rcfg.kmeans_iters, n_init=rcfg.n_init,
+                          weights=sizes.reshape(N * kl))
+    # (iii) each process's clients' statistics; (iv) gathered, then summed
+    # over the whole stack as in process
+    s = shd.all_gather_rows(_cluster_sums(centroids, local, K, M), mesh)
+    a, c, cnt = s[..., 1].sum(0), s[..., 2].sum(0), s[..., 0].sum(0)
+    A, C = _finalize(a, c, cnt, rcfg.c_max)
+    return {"centroids": centroids, "A": A, "C": C, "n": cnt}
 
 
 def local_kmeans_router(gen, data_i, rcfg: RouterConfig, *, num_models=None,

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.config import RouterConfig
 
 
@@ -59,8 +60,8 @@ def _row(v: torch.Tensor) -> torch.Tensor:
 def trunk_apply(params: dict, x: torch.Tensor, *, dropout: float = 0.0,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Linear → LayerNorm → GELU per layer; with ``dropout > 0`` and a
-    generator, inverted dropout after each layer (keep with 1 − p, scale
-    by 1/(1 − p))."""
+    generator (or a ``sharding.ClientRows``), inverted dropout after each
+    layer (keep with 1 − p, scale by 1/(1 − p))."""
     h = x
     for lyr in params["trunk"]:
         h = torch.matmul(h, lyr["w"]) + _row(lyr["b"])
@@ -70,8 +71,7 @@ def trunk_apply(params: dict, x: torch.Tensor, *, dropout: float = 0.0,
              + _row(lyr["ln_b"]))
         h = F.gelu(h, approximate="tanh")
         if dropout > 0.0 and gen is not None:
-            keep = torch.rand(h.shape, generator=gen,
-                              device=h.device) < 1.0 - dropout
+            keep = shd.rand(h.shape, gen, device=h.device) < 1.0 - dropout
             h = torch.where(keep, h / (1.0 - dropout), 0.0)
     return h
 

@@ -25,10 +25,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+class MetaGenerator:
+    """Stands for a generator on the meta device, where a draw makes a
+    tensor of the right shape and dtype and no values: nothing is drawn
+    (``models.layers.normal`` passes no generator for it)."""
+    device = torch.device("meta")
+
+
 def generator(gen: Union[torch.Generator, int],
               device: torch.device) -> torch.Generator:
     """``gen`` itself, or a generator on ``device`` seeded with it. Draws
-    happen on the device that keeps the result."""
+    happen on the device that keeps the result. On the meta device any
+    ``gen`` gives a ``MetaGenerator``."""
+    if device.type == "meta":
+        return MetaGenerator()
     if isinstance(gen, int):
         return torch.Generator(device=device).manual_seed(gen)
     if gen.device.type != device.type:

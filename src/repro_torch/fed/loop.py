@@ -27,7 +27,7 @@ consumes. Padding harvested data to the buffer capacity
 same across syncs.
 
 Not ported yet, raising ``NotImplementedError``: ``FedLoopConfig.mesh``
-(the cross-silo mesh of the sync fits).
+(the cross-silo mesh of the sync fits; slice 13 of the port).
 """
 from __future__ import annotations
 
@@ -92,7 +92,7 @@ class FedLoop:
         if cfg.mesh is not None:
             raise NotImplementedError(
                 "FedLoopConfig(mesh=...) is not ported to the PyTorch loop "
-                "yet")
+                "yet (slice 13 of the port)")
         self.server = server
         self.fcfg = fcfg
         self.aggregator = aggregator

@@ -29,7 +29,10 @@ def make_train_step(cfg: ModelConfig, *, moe_mode: str = "dense",
         loss = mdl.loss_fn(params, cfg, batch, moe_mode=moe_mode,
                            q_chunk=q_chunk, attn_layout=attn_layout)
         leaves = tree_leaves(params)
-        grads = iter(torch.autograd.grad(loss, leaves))
+        # a leaf the loss does not use (a VLM's token table, when the batch
+        # arrives as embeddings) gets a zero gradient, as jax.grad gives
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
         grads = tree_map(lambda _: next(grads), params)
         with torch.no_grad():
             params, opt_state = opt.update(

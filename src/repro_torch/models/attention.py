@@ -33,6 +33,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import paged_gather_ref
+from repro_torch.kernels.costs import kernel as counted
+from repro_torch.kernels.costs import tensor_bytes
 from repro_torch.models import layers as L
 
 NEG = -1e30
@@ -192,8 +194,10 @@ def attn_decode_step(p: dict, x: torch.Tensor, cache: dict,
     positions = pos[:, None] if per_slot else pos.reshape(1, 1)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     # the reference's dynamic_update_slice clamps the write into the cache
-    slot = ((pos % W) if rolling else pos).clamp(0, W - 1).long()
-    rows = torch.arange(B, device=x.device) if per_slot else slice(None)
+    # (a row index per row even for one position: a 0-d index tensor
+    # would be read on the host)
+    slot = ((pos % W) if rolling else pos).clamp(0, W - 1).long().expand(B)
+    rows = torch.arange(B, device=x.device)
     kc[rows, :, slot] = k_new[:, 0].to(kc.dtype)
     vc[rows, :, slot] = v_new[:, 0].to(vc.dtype)
     n_valid = torch.clamp(pos + 1, max=W)
@@ -203,9 +207,12 @@ def attn_decode_step(p: dict, x: torch.Tensor, cache: dict,
     if kops.resolve_impl(None, qg) == "cuda":
         out = kops.decode_attention(qg, kc, vc, n_valid).to(vc.dtype)
     else:
-        ar = torch.arange(W, device=x.device)[None, :]
-        valid = ar < (n_valid[:, None] if per_slot else n_valid)
-        out = _masked_grouped_attn(qg, kc, vc, valid)
+        # the kernel's function on the CPU, counted as the kernel
+        with counted("decode_attention", lambda: kops.decode_work(
+                qg, kc.element_size(), W, tensor_bytes(n_valid))):
+            ar = torch.arange(W, device=x.device)[None, :]
+            valid = ar < (n_valid[:, None] if per_slot else n_valid)
+            out = _masked_grouped_attn(qg, kc, vc, valid)
     out = out.reshape(B, 1, cfg.n_heads * hd)
     return out @ p["wo"], cache
 
@@ -245,17 +252,23 @@ def attn_decode_step_paged(p: dict, x: torch.Tensor, cache: dict,
 
     Hkv, hd, g = cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
     qg = q.reshape(B, Hkv, g, hd)
+    nv = pos + 1
     if kops.resolve_impl(None, qg) == "cuda":
-        out = kops.paged_decode_attention(qg, kc, vc, page_table, pos + 1)
+        out = kops.paged_decode_attention(qg, kc, vc, page_table, nv)
     else:
         # the GATHER formulation, as the reference's CPU path: the softmax
         # normalizer and V sums reduce in logical-position order, like the
-        # contiguous path, so engine tokens equal solo tokens
-        n_valid = torch.clamp(pos + 1, max=npg * ps)
-        valid = (torch.arange(npg * ps, device=x.device)[None, :]
-                 < n_valid[:, None])
-        out = _masked_grouped_attn(qg, paged_gather_ref(kc, page_table),
-                                   paged_gather_ref(vc, page_table), valid)
+        # contiguous path, so engine tokens equal solo tokens; counted as
+        # the kernel
+        with counted("paged_decode_attention", lambda: kops.decode_work(
+                qg, kc.element_size(), npg * ps,
+                tensor_bytes(page_table, nv))):
+            n_valid = torch.clamp(nv, max=npg * ps)
+            valid = (torch.arange(npg * ps, device=x.device)[None, :]
+                     < n_valid[:, None])
+            out = _masked_grouped_attn(qg, paged_gather_ref(kc, page_table),
+                                       paged_gather_ref(vc, page_table),
+                                       valid)
     out = out.to(vc.dtype).reshape(B, 1, cfg.n_heads * hd)
     return out @ p["wo"], cache
 

@@ -20,9 +20,11 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    """scale * N(0, 1) drawn in f32 on the generator's device, then cast."""
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    """scale * N(0, 1) drawn in f32 on the generator's device, then cast
+    (on the meta device, a ``device.MetaGenerator``, no values)."""
+    x = torch.randn(shape, device=gen.device, dtype=torch.float32,
+                    generator=gen if isinstance(gen, torch.Generator)
+                    else None)
     return x.mul_(scale).to(dtype)
 
 

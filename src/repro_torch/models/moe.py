@@ -17,14 +17,18 @@ Two dispatch implementations (selected by ``mode``), as in the reference:
 Neither has a Pallas kernel in the reference, so both are plain PyTorch.
 The router's load-balance auxiliary loss (Switch eq. 4) is returned beside
 the output. The expert-parallel capacity dispatch on a mesh
-(``_capacity_shard_map``) is not ported.
+(``_capacity_shard_map``) is not ported (slice 13 of the port).
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.costs import kernel as counted
+from repro_torch.kernels.costs import measure
 from repro_torch.models import layers as L
 
 #: tokens per dense-dispatch slice: the (E, T, f) and (E, T, d)
@@ -36,7 +40,10 @@ _DENSE_TOKENS = 64
 
 def _normal_experts(gen: torch.Generator, shape, scale: float, dtype):
     """``L.normal`` of an (E, ...) expert weight, drawn one expert at a
-    time, so the f32 draw never holds more than one expert."""
+    time, so the f32 draw never holds more than one expert (on the meta
+    device, which holds nothing, all at once)."""
+    if gen.device.type == "meta":
+        return L.normal(gen, shape, scale, dtype)
     out = torch.empty(shape, dtype=dtype, device=gen.device)
     for e in range(shape[0]):
         out[e] = L.normal(gen, shape[1:], scale, dtype)
@@ -71,8 +78,13 @@ def _router_probs(p, x, cfg: ModelConfig):
 
 def _aux_loss(probs, top_ids, cfg: ModelConfig):
     E = cfg.moe.num_experts
-    # fraction of tokens dispatched to each expert (first choice proxy)
-    counts = torch.mean(F.one_hot(top_ids[:, 0], E).float(), dim=0)
+    T = top_ids.shape[0]
+    # fraction of tokens dispatched to each expert (first choice proxy):
+    # exact counts over T, as the mean of the one-hot rows; scattered,
+    # since F.one_hot runs other ops on each device
+    first = top_ids[:, 0]
+    counts = torch.zeros(E, device=first.device).scatter_add_(
+        0, first, torch.ones(T, device=first.device)) / T
     imp = torch.mean(probs, dim=0)
     return E * torch.sum(counts * imp)
 
@@ -100,6 +112,143 @@ def _expert_mlp(p, xe):
     return torch.bmm(g * u, p["wd"])
 
 
+def _slices(T: int) -> list:
+    """(first token, length) of each dense-dispatch slice over T tokens."""
+    return [(t0, min(_DENSE_TOKENS, T - t0))
+            for t0 in range(0, T, _DENSE_TOKENS)]
+
+
+def _slice_forward(xs, gs, wg, wu, wd, out_rows) -> tuple:
+    """One slice of the dense dispatch: every expert on the tokens xs
+    (t, d), weighted by their gate rows gs (t, E) f32 cast to the experts'
+    dtype, written into ``out_rows`` (t, d). Returns what the slice's
+    gradient needs: the gate and up projections and the experts' outputs
+    (each (E, t, ·)); g·u is formed in the model dtype, as the reference
+    does."""
+    E = wg.shape[0]
+    xe = xs.unsqueeze(0).expand(E, -1, -1)
+    a = torch.bmm(xe, wg)
+    u = torch.bmm(xe, wu)
+    y = torch.bmm(F.silu(a) * u, wd)                          # (E, t, d)
+    out_rows.copy_(torch.einsum("etd,te->td", y, gs.to(y.dtype)))
+    return a, u, y
+
+
+def _grad_buffers(xt, gate, ws) -> tuple:
+    """(dx, dgate, [dwg, dwu, dwd]): the slices write dx and dgate and
+    add into the zeroed weight gradients."""
+    return (torch.empty_like(xt), torch.empty_like(gate),
+            [torch.zeros_like(w) for w in ws])
+
+
+def _slice_backward(go, xs, gs, ws, a, u, y, dx_rows, dg_rows, dws) -> None:
+    """The gradient of ``_slice_forward`` for the output rows' gradient
+    go (t, d): autograd's products, written into this slice's rows of dx
+    and dgate and added into the weight gradients."""
+    wg, wu, wd = ws
+    E = wg.shape[0]
+    gc = gs.to(y.dtype)
+    dy = torch.einsum("td,te->etd", go, gc)
+    dg_rows.copy_(torch.einsum("etd,td->te", y, go))
+    ga = F.silu(a)
+    dh = torch.bmm(dy, wd.transpose(1, 2))                    # (E, t, f)
+    dws[2].add_(torch.bmm((ga * u).transpose(1, 2), dy))
+    da = torch.ops.aten.silu_backward(dh * u, a)
+    du = dh * ga
+    xe_t = xs.unsqueeze(0).expand(E, -1, -1).transpose(1, 2)
+    dws[0].add_(torch.bmm(xe_t, da))
+    dws[1].add_(torch.bmm(xe_t, du))
+    dx_rows.copy_((torch.bmm(da, wg.transpose(1, 2))
+                   + torch.bmm(du, wu.transpose(1, 2))).sum(0))
+
+
+def _meta(t) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _rows(n: int, like) -> torch.Tensor:
+    return torch.empty((n,) + tuple(like.shape[1:]), dtype=like.dtype,
+                       device="meta")
+
+
+def _forward_work(xt, gate, ws, out) -> tuple:
+    """(FLOPs, bytes) of the dense dispatch's forward over every slice:
+    each distinct slice length counted once on meta tensors, times the
+    slices of that length (slices of one length run the same ops)."""
+    flops = nbytes = 0
+    for t, k in Counter(t for _, t in _slices(xt.shape[0])).items():
+        f, b = measure(_slice_forward, _rows(t, xt), _rows(t, gate),
+                       *map(_meta, ws), _rows(t, out))
+        flops, nbytes = flops + k * f, nbytes + k * b
+    return flops, nbytes
+
+
+def _backward_work(go, xt, gate, ws) -> tuple:
+    """(FLOPs, bytes) of the dense dispatch's gradient, as
+    ``_forward_work``: the buffers once, each slice length once on meta
+    tensors times its slices."""
+    mws = [_meta(w) for w in ws]
+    flops, nbytes = measure(_grad_buffers, _meta(xt), _meta(gate), mws)
+    for t, k in Counter(t for _, t in _slices(xt.shape[0])).items():
+        E = ws[0].shape[0]
+        act = lambda w: torch.empty((E, t, w.shape[2]), dtype=w.dtype,
+                                    device="meta")
+        f, b = measure(_slice_backward, _rows(t, go), _rows(t, xt),
+                       _rows(t, gate), mws, act(ws[0]), act(ws[1]),
+                       act(ws[2]), _rows(t, xt), _rows(t, gate),
+                       [torch.empty_like(w) for w in mws])
+        flops, nbytes = flops + k * f, nbytes + k * b
+    return flops, nbytes
+
+
+class _DenseExperts(torch.autograd.Function):
+    """The dense dispatch's expert work, in slices of ``_DENSE_TOKENS``
+    tokens on every device that holds values, with its gradient written
+    out slice by slice from what each slice kept (its gate and up
+    projections and its experts' outputs). Under ``kernels.costs.OpCosts`` the forward and
+    the gradient each record the work of that slicing (``_forward_work``,
+    ``_backward_work``: every slice's ops, counted once per slice length
+    and scaled), so a step counts the card's work on the meta device too,
+    where nothing is computed and no values exist."""
+
+    @staticmethod
+    def forward(ctx, xt, gate, wg, wu, wd, keep: bool):
+        ws = (wg, wu, wd)
+        out = torch.empty(xt.shape, dtype=wd.dtype, device=xt.device)
+        saved = []
+        with counted("moe_dense_dispatch",
+                     lambda: _forward_work(xt, gate, ws, out)):
+            if xt.device.type != "meta":
+                for t0, t in _slices(xt.shape[0]):
+                    acts = _slice_forward(xt[t0:t0 + t], gate[t0:t0 + t],
+                                          *ws, out[t0:t0 + t])
+                    if keep:
+                        saved += acts
+        if keep:
+            ctx.save_for_backward(xt, gate, *ws, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, go):
+        # unpacked first: under the train step's remat this recomputes the
+        # unit, whose ops count as any forward's
+        xt, gate, *rest = ctx.saved_tensors
+        ws, acts = rest[:3], rest[3:]
+        with counted("moe_dense_dispatch_grad",
+                     lambda: _backward_work(go, xt, gate, ws)):
+            dx, dgate, dws = _grad_buffers(xt, gate, ws)
+            if xt.device.type != "meta":
+                # the last slice first, as autograd sums a weight's
+                # gradients (the same roundings)
+                for i, (t0, t) in reversed(list(enumerate(_slices(
+                        xt.shape[0])))):
+                    r = slice(t0, t0 + t)
+                    _slice_backward(go[r], xt[r], gate[r], ws,
+                                    *acts[3 * i:3 * i + 3], dx[r], dgate[r],
+                                    dws)
+        return (dx, dgate, *dws, None)
+
+
 def _dense_dispatch(p, xt, top_w, top_ids, cfg: ModelConfig):
     """Every expert on every token, weighted by the gate. As in the
     reference, the gate is cast to the experts' output dtype before the
@@ -109,13 +258,10 @@ def _dense_dispatch(p, xt, top_w, top_ids, cfg: ModelConfig):
     # gate (T, E): top-k weights scattered into the full expert dim
     gate = torch.zeros((T, E), dtype=torch.float32, device=xt.device)
     gate.scatter_add_(1, top_ids, top_w)
-    outs = []
-    for t0 in range(0, T, _DENSE_TOKENS):
-        xe = xt[t0:t0 + _DENSE_TOKENS].unsqueeze(0).expand(E, -1, -1)
-        y = _expert_mlp(p, xe)                                 # (E, t, d)
-        g = gate[t0:t0 + _DENSE_TOKENS].to(y.dtype)
-        outs.append(torch.einsum("etd,te->td", y, g))
-    return torch.cat(outs)
+    ins = (xt, gate, p["wg"], p["wu"], p["wd"])
+    # the slices keep their activations only for a gradient
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    return _DenseExperts.apply(*ins, keep)
 
 
 def _capacity_shard_map(p, xt, cfg: ModelConfig, cf: float):
@@ -123,8 +269,8 @@ def _capacity_shard_map(p, xt, cfg: ModelConfig, cf: float):
     ``shard_map``: mesh work, not ported (queued in ROADMAP.md)."""
     raise NotImplementedError(
         "moe: the expert-parallel capacity dispatch on a mesh "
-        "(_capacity_shard_map) is not ported — the PyTorch port runs on one "
-        "device (multi-device work is queued in ROADMAP.md)")
+        "(_capacity_shard_map) is not ported — it waits for the serving "
+        "meshes, slice 13 of the port (ROADMAP.md)")
 
 
 def _capacity_dispatch(p, xt, top_w, top_ids, cfg: ModelConfig, cf: float):

@@ -71,15 +71,25 @@ class KMeansRouter(Router):
                        mesh=None, client_mask=None, **kw):
         """Alg. 2: one-shot — local K-means upload, server K-means over
         centroids, one statistics round. ``rounds`` does not apply (and is
-        ignored); parametric-only knobs are rejected."""
+        ignored); parametric-only knobs are rejected. ``mesh=`` (a
+        ``sharding.client_mesh``) runs the local stage on each process's
+        block of clients, equal to the in-process fit (no client_mask on
+        that path)."""
         if kw:
             raise ValueError("kmeans fit_federated got unsupported "
                              f"options: {', '.join(sorted(kw))}")
         if mesh is not None:
-            KR.fed_kmeans_router_sharded()
-        state = KR.fed_kmeans_router(gen, data, self.rcfg,
-                                     num_models=self._num_models,
-                                     client_mask=client_mask)
+            if client_mask is not None:
+                raise ValueError("the kmeans mesh path supports only the "
+                                 "plain protocol — drop client_mask= or "
+                                 "mesh=")
+            state = KR.fed_kmeans_router_sharded(
+                gen, data, self.rcfg, num_models=self._num_models,
+                mesh=mesh)
+        else:
+            state = KR.fed_kmeans_router(gen, data, self.rcfg,
+                                         num_models=self._num_models,
+                                         client_mask=client_mask)
         new = self.with_state(state)
         return new, {"loss": [], "eval": [eval_fn(new)] if eval_fn else []}
 

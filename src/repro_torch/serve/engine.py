@@ -51,8 +51,8 @@ mates). SSM and hybrid models are refused with ``TypeError``, as in the
 reference: their state integrates every position, pad included, so they
 cannot share padded buckets; the gateway serves them per call.
 
-Not ported yet, raising ``NotImplementedError`` (queued in ROADMAP.md):
-the cross-silo ``mesh``.
+Not ported yet, raising ``NotImplementedError`` (slice 13 of the port,
+queued in ROADMAP.md): the cross-silo ``mesh``.
 """
 from __future__ import annotations
 
@@ -235,7 +235,7 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError("ServeEngine: cross-silo mesh execution "
                                       "is not ported to the PyTorch engine "
-                                      "yet")
+                                      "yet (slice 13 of the port)")
         if ecfg.reserve not in ("lifetime", "initial"):
             raise ValueError(f"EngineConfig.reserve={ecfg.reserve!r}: "
                              "expected 'lifetime' or 'initial'")

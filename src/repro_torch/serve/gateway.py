@@ -33,7 +33,8 @@ down the router's own ranking. ``swap_router_state`` hot-swaps refitted
 state of the same structure, and ``add_model`` onboards a pool model with
 its expanded router; both bump ``router_version``.
 
-Not ported yet, raising ``NotImplementedError``: the cross-silo mesh.
+Not ported yet, raising ``NotImplementedError``: the cross-silo mesh
+(slice 13 of the port).
 """
 from __future__ import annotations
 
@@ -123,7 +124,7 @@ class RoutedServer:
         if mesh is not None:
             raise NotImplementedError(
                 "RoutedServer(mesh=...) is not ported to the PyTorch "
-                "gateway yet")
+                "gateway yet (slice 13 of the port)")
         self.device = resolve_device(device)
         if not isinstance(router, Router):
             raise TypeError("RoutedServer takes a repro_torch.routers.Router "

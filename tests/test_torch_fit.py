@@ -302,7 +302,7 @@ def test_fit_local_and_eval_hooks(fed_data):
         eval_fn=lambda r: seen.append(r.num_models) or _auc_t(r, test),
         eval_every=2)
     assert seen == [11, 11] and len(hist["eval"]) == 2
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         routers.fit_federated(routers.make("mlp", tr), train, tf, gen=1,
                               device="cpu", mesh=object())
     _, hist = routers.fit_federated(routers.make("mlp", tr), train, tf,

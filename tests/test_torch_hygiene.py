@@ -68,7 +68,11 @@ def test_port_has_every_slice_module():
             "evalbench/__init__.py", "evalbench/pools.py",
             "evalbench/metrics.py", "evalbench/perturb.py",
             "evalbench/harness.py", "train/lm_data.py", "launch/steps.py",
-            "launch/train.py", "launch/serve.py", "train_lm.py"]
+            "launch/train.py", "launch/serve.py", "train_lm.py",
+            # slice 12: the step accounting and the clients mesh
+            "launch/mesh.py", "launch/op_analysis.py", "launch/specs.py",
+            "launch/dryrun.py", "launch/roofline.py", "sharding.py",
+            "kernels/costs.py"]
     pkg = ROOT / "src" / "repro_torch"
     assert [w for w in want if not (pkg / w).is_file()] == []
     # slices 7 to 9 grew modules that slices 1 and 2 began: what each must
@@ -109,7 +113,20 @@ def test_port_has_every_slice_module():
                                      "online_routerbench"],
             "launch/steps.py": ["make_train_step", "make_prefill_step",
                                 "make_decode_step"],
-            "launch/train.py": ["train_loop", "main"]}
+            "launch/train.py": ["train_loop", "main"],
+            "core/federated.py": ["fedavg_round_sharded", "pad_client_axis"],
+            "core/kmeans_router.py": ["fed_kmeans_router_sharded"],
+            "launch/op_analysis.py": ["roofline_terms"],
+            "kernels/costs.py": ["OpCosts", "kernel", "measure",
+                                 "tensor_bytes"],
+            "models/moe.py": ["_DenseExperts", "_slice_forward",
+                              "_slice_backward"],
+            "launch/specs.py": ["param_layouts", "cache_layouts",
+                                "activation_rules", "batch_axes",
+                                "input_shapes", "per_device_bytes"],
+            "launch/dryrun.py": ["run_combo", "load_done", "min_bytes"],
+            "sharding.py": ["make_mesh", "client_mesh", "shard_clients",
+                            "ClientRows", "all_gather_rows"]}
     missing = []
     for f, names in defs.items():
         tree = ast.parse((pkg / f).read_text())
