@@ -1315,7 +1315,14 @@ def fit_data(torch, dev) -> dict:
 def pool_router(torch, dev, family: str):
     """A router of ``family`` over the two pool models (num_models=2, d_emb
     768), fitted with ``fit_federated`` on a 4,000-query corpus of two
-    models."""
+    models: once per family, each caller getting a copy of its state."""
+    from repro_torch.train.optim import tree_map
+    router = _pool_router(torch, dev, family)
+    return router.with_state(tree_map(lambda t: t.clone(), router.state))
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_router(torch, dev, family: str):
     from repro_torch import routers
     from repro_torch.config import FedConfig, RouterConfig
     from repro_torch.data.partition import federated_split
@@ -2422,10 +2429,11 @@ def failover(torch, dev, pool, router) -> list:
 # ---------------------------------------------------------------------------
 
 #: the full-width loop's traffic: 4 clients over the 2-model pool at d_emb
-#: 768, two phases of 32 arrivals (64 until the script's time had to make
-#: room for slice 11's phases)
+#: 768, two phases of 20 arrivals (64 until the script's time had to make
+#: room for slice 11's phases, 32 until slice 13's; 20 still harvest the
+#: 16 samples of a sync before the save)
 FEDLOOP_SCENARIO = dict(n_clients=4, n_tasks=8, n_models=2, d_emb=768,
-                        n_queries=2000, queries_per_phase=32, phases=2,
+                        n_queries=2000, queries_per_phase=20, phases=2,
                         max_new=MAX_NEW)
 #: ``BENCH_fedloop.json``'s scale (``bench_fedloop(smoke=False)``)
 ONLINE_SCENARIO = dict(n_clients=8, queries_per_phase=256, phases=3,
@@ -3467,7 +3475,7 @@ RB_FULL = dict(rcfg=dict(d_emb=24, num_models=8, hidden=(48, 48),
                fcfg=dict(num_clients=6, rounds=40, batch_size=32, lr=3e-3,
                          seed=0),
                corpus=dict(n_models=8, n_queries=1200, d_emb=24, n_tasks=6),
-               local_steps=50)     # bench_routerbench's own: 300
+               local_steps=25)     # bench_routerbench's own: 300
 RB_SMOKE = dict(rcfg=dict(d_emb=16, num_models=6, hidden=(48, 48),
                           dropout=0.0, k_local=5, k_global=8, mf_rank=12),
                 fcfg=dict(num_clients=4, rounds=30, batch_size=32, lr=3e-3,
@@ -3478,7 +3486,7 @@ RB_ONLINE = dict(n_clients=4, n_models=3, d_emb=24, n_queries=800,
                  queries_per_phase=96, phases=2, embed_sigma=0.9,
                  test_queries=48, seed=0)
 RB_ONLINE_STEPS = 50     # bench_routerbench's own: 150
-RB_WIDE_STEPS = 50       # the §1-width run's (the harness's own: 400)
+RB_WIDE_STEPS = 25       # the §1-width run's (the harness's own: 400)
 #: kernels an offline RouterBench run launches: #1 in the MLP, MF and Elo
 #: routes, #4 in K-means' predict and route, #5 in the K-means and Elo fits
 RB_KERNELS = ("router_utility", "kmeans_assign", "kmeans_assign_reduce")
@@ -3524,7 +3532,7 @@ def routerbench_reference_scale(torch, dev) -> list:
     """``bench_routerbench`` on the card. Its full configuration
     (``benchmarks/perf_suite.py:992-998``: 8 models, 1,200 queries, d_emb
     24, 6 clients, 40 rounds; all four families; its 300 local steps cut
-    to 50) offline, and online for "mf" and "elo" (``:1015-1022``; its
+    to 25) offline, and online for "mf" and "elo" (``:1015-1022``; its
     150 local steps cut to 50); each AIQ printed beside
     ``BENCH_routerbench.json``'s (JAX on a CPU, read as data: a
     comparison, not a check). Its smoke configuration (``:984-990``)
@@ -3905,6 +3913,309 @@ def clients_mesh(torch, dev, split, fitted: dict, fit_rows: list) -> list:
     return rows
 
 
+#: the serving meshes' MoE check: tokens of the phi-3.5-MoE layer, and
+#: the bf16 tolerance of the expert-parallel dispatch against the dense one
+#: in bf16 ulps of the dense output's largest magnitude
+MOE_TOKENS = 256
+MOE_ULPS = 8
+
+
+def _mesh_serve(srv, lams) -> tuple:
+    """``SOLO`` through ``srv.submit`` at the given λs, drained: (tokens
+    in submit order, the engine's counters)."""
+    rids = [srv.submit(p, lam=lam, max_new_tokens=MAX_NEW)
+            for p, lam in zip(SOLO, lams)]
+    done = srv.drain(rids)
+    return [done[r].tolist() for r in rids], srv.engine.counters()
+
+
+def _mesh_lanes(torch, dev, ops, pool, router, shd) -> tuple:
+    """(a) of ``serving_mesh``: ``SOLO`` on paged and uniform lanes, solo
+    and on a ``data`` mesh and a ``data`` × ``heads`` mesh (1 × 1). Each
+    server is warmed by one request, then its run is counted. Returns
+    (rows, {lane: {mesh: summary}})."""
+    from repro_torch.launch.op_analysis import OpCosts
+    from repro_torch.serve.engine import EngineConfig
+    from repro_torch.serve.gateway import RoutedServer
+    RU, UA, PA = "router_utility", "decode_attention", "paged_decode_attention"
+    lams = (0.0, 2.0, 0.0, 2.0)
+    meshes = (("solo", None), ("data", shd.data_mesh),
+              ("data x heads", lambda: shd.make_mesh({"data": 1,
+                                                       "heads": 1})))
+    rows, out = [], {}
+    for lane, ecfg in (("paged", EngineConfig()),
+                       ("uniform", EngineConfig(page_size=None))):
+        kern = PA if lane == "paged" else UA
+        res = out[lane] = {}
+        for name, mk in meshes:
+            srv = RoutedServer(pool, router, device=dev, engine_cfg=ecfg,
+                               mesh=mk() if mk else None)
+            srv.drain([srv.submit(SOLO[0], lam=0.0, max_new_tokens=8)])
+            (toks, counters), row = run_fit(
+                torch, ops, f"serving_mesh {lane} {name}",
+                lambda: _mesh_serve(srv, lams), {RU: len(SOLO), kern: None},
+                phase="serving_mesh")
+            rows.append(row)
+            res[name] = {"tokens": toks, "counters": counters,
+                         "launches": row["launches"][kern],
+                         "seconds": row["seconds"],
+                         "lanes": sorted(srv.engine._lanes)}
+            if name == "data" and lane == "paged":
+                # the collectives of one engine step with both lanes busy
+                for p, lam in zip(SOLO, lams):
+                    srv.submit(p, lam=lam, max_new_tokens=MAX_NEW)
+                srv.step()
+                with OpCosts() as oc:
+                    srv.step()
+                srv.drain()
+                res[name]["step_collectives"] = oc.totals()["collectives"]
+                res[name]["busy_lanes"] = len(srv.engine._lanes)
+            del srv
+    return rows, out
+
+
+def _mesh_spec(torch, dev, ops, pool, shd) -> tuple:
+    """(b) of ``serving_mesh``: ``spec_full_width``'s qwen3-8b drafted by
+    qwen2-1.5b, solo and on a ``data`` mesh, 8 tokens a prompt (the random
+    pair accepts no draft, so each round commits one token)."""
+    from repro_torch.serve.engine import EngineConfig
+    from repro_torch.serve.gateway import RoutedServer
+    UA, PA = "decode_attention", "paged_decode_attention"
+    pool3, router3 = _spec_pool(torch, dev, pool, reduced=False)
+    rows, res = [], {}
+    for name, mesh in (("solo", None), ("data", shd.data_mesh())):
+        srv = RoutedServer(pool3, router3, device=dev, mesh=mesh,
+                           engine_cfg=EngineConfig(spec_k=SPEC_K))
+        _lane_run(srv.engine, pool3, 2, draft=0, n=1, max_new=4)   # warm-up
+        (toks, c), row = run_fit(
+            torch, ops, f"serving_mesh spec qwen3-8b <- qwen2-1.5b {name}",
+            lambda: _lane_run(srv.engine, pool3, 2, draft=0, max_new=8),
+            {UA: None, PA: None}, phase="serving_mesh")
+        rows.append(row)
+        res[name] = {"tokens": [t.tolist() for t in toks], "counters": c,
+                     "launches": {k: row["launches"][k] for k in (UA, PA)},
+                     "seconds": row["seconds"]}
+        del srv
+    return rows, res
+
+
+def _mesh_loop(torch, dev, ops, pool, shd) -> tuple:
+    """(c) of ``serving_mesh``: ``fedloop_full_width``'s configuration (the
+    MLP ``pool_router``, d_emb 768, 4 clients) over the first 4 arrivals of
+    its phase 0, then one sync: in process, and with the engine on
+    ``data_mesh()`` and the sync on ``client_mesh()``; then the mesh loop
+    saved and restored into a fresh mesh loop."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.config import FedConfig
+    from repro_torch.fed import (FedLoop, FedLoopConfig, HarvestStore,
+                                 ScenarioConfig, TrafficScenario)
+    from repro_torch.serve.gateway import RoutedServer
+    from repro_torch.train.optim import tree_leaves
+    RU, PA = "router_utility", "paged_decode_attention"
+    router = pool_router(torch, dev, "mlp")
+    scen = TrafficScenario(ScenarioConfig(**FEDLOOP_SCENARIO))
+    events = scen.events(0)[:4]
+    rng0 = copy.deepcopy(scen._outcome_rng)
+    fcfg = FedConfig(num_clients=4, participation=0.75, batch_size=32,
+                     lr=3e-3)
+
+    def make(mesh=None, engine_mesh=None):
+        srv = RoutedServer(pool, router, device=dev, mesh=engine_mesh,
+                           harvest=HarvestStore(768, capacity=64,
+                                                clients=range(4), device=dev))
+        return FedLoop(srv, fcfg, gen=31, cfg=FedLoopConfig(
+            sync_every=8, rounds_per_sync=4, min_samples=16, mesh=mesh))
+
+    def drive(loop):
+        scen._outcome_rng = copy.deepcopy(rng0)
+        srv = loop.server
+        for c, q, lam in events:
+            rid = srv.submit(scen.prompt(q), lam=lam,
+                             max_new_tokens=scen.cfg.max_new, client_id=c,
+                             x=scen.x(q, 0))
+            srv.report_outcome(rid, *scen.observe(q, srv.routed_model(rid)))
+            loop.step()
+        loop.drain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.sync()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    rows, res = [], {}
+    loops = {"in_process": make(),
+             "mesh": make(shd.client_mesh(), shd.data_mesh())}
+    for name, loop in loops.items():
+        sync_s, row = run_fit(torch, ops, f"serving_mesh fedloop {name}",
+                              lambda: drive(loop),
+                              {RU: len(events), PA: None},
+                              phase="serving_mesh")
+        rows.append(row)
+        res[name] = {"seconds": row["seconds"], "sync_seconds": sync_s}
+    a, m = (loops[k] for k in ("in_process", "mesh"))
+    la, lm = (tree_leaves(x.server.router.state) for x in (a, m))
+    same = (len(la) == len(lm) and all(torch.equal(x, y)
+                                       for x, y in zip(la, lm))
+            and [h["loss"] for h in a.history] == [h["loss"]
+                                                   for h in m.history])
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "fedloop.ckpt"
+    t0 = time.perf_counter()
+    m.save(path)
+    res["save_seconds"] = time.perf_counter() - t0
+    res["checkpoint_bytes"] = path.stat().st_size
+    r = make(shd.client_mesh(), shd.data_mesh())
+    t0 = time.perf_counter()
+    r.restore(path)
+    res["restore_seconds"] = time.perf_counter() - t0
+    tmp.cleanup()
+    lr_ = tree_leaves(r.server.router.state)
+    hm, hr = m.server.harvest.state(), r.server.harvest.state()
+    round_trip = (all(torch.equal(x, y) for x, y in zip(lm, lr_))
+                  and r.history == m.history
+                  and r.server.router_version == m.server.router_version
+                  and [c for c, _ in hm["clients"]]
+                  == [c for c, _ in hr["clients"]]
+                  and all(np.array_equal(x[k], y[k]) for (_, x), (_, y)
+                          in zip(hm["clients"], hr["clients"]) for k in x))
+    res.update(bit_identical=same, round_trip=round_trip,
+               syncs=[len(x.history) for x in (a, m)])
+    return rows, res
+
+
+def _mesh_moe(torch, dev, shd) -> dict:
+    """(d) of ``serving_mesh``: one phi-3.5-MoE layer at full width (16
+    experts, top 2, bf16) on ``MOE_TOKENS`` tokens through
+    ``_capacity_shard_map`` under {"tokens": "data", "experts": "model"}
+    on a 1 × 1 mesh: at cf 1.25 against ``_capacity_dispatch`` (output and
+    aux loss bit for bit: see the check), at cf 8.0 against the dense
+    dispatch within ``MOE_ULPS`` bf16 ulps of its largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = M.init_moe(gen, cfg)
+    x = torch.randn((MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    mesh = shd.make_mesh({"data": 1, "model": 1})
+    rules = {"tokens": "data", "experts": "model"}
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    tw, ti, probs = M._router_probs(p, x, cfg)
+    aux_want = M._aux_loss(probs, ti, cfg)
+    (want, _), _ = run(lambda: (M._capacity_dispatch(p, x, tw, ti, cfg,
+                                                     1.25), 0))
+    (want, _), cap_s = run(lambda: (M._capacity_dispatch(p, x, tw, ti, cfg,
+                                                         1.25), 0))
+    with shd.use_rules(mesh, rules):
+        run(lambda: M._capacity_shard_map(p, x, cfg, 1.25))      # warm-up
+        (got, aux), map_s = run(lambda: M._capacity_shard_map(p, x, cfg,
+                                                              1.25))
+        (got8, aux8), _ = run(lambda: M._capacity_shard_map(p, x, cfg, 8.0))
+    dense = M._dense_dispatch(p, x, tw, ti, cfg)
+    # index_add_ adds with atomics on the card, in no fixed order; a token
+    # takes at most top_k = 2 expert outputs, and 0 + a + b rounds as
+    # 0 + b + a (two-term float addition commutes), so the order cannot
+    # show: the dispatch must equal _capacity_dispatch bit for bit
+    C = max(1, int(MOE_TOKENS * cfg.moe.top_k * 1.25) // cfg.moe.num_experts)
+    kept = int(torch.bincount(ti.reshape(-1),
+                              minlength=cfg.moe.num_experts).clamp(max=C)
+               .sum())
+    err = float((got8.float() - dense.float()).abs().max())
+    tol = MOE_ULPS * float(bf16_ulp(torch, dense.float().abs().max()))
+    return {"tokens": MOE_TOKENS, "experts": cfg.moe.num_experts,
+            "top_k": cfg.moe.top_k, "capacity_at_1.25": C,
+            "kept_at_1.25": kept, "dropped_at_1.25":
+            MOE_TOKENS * cfg.moe.top_k - kept,
+            "equal_capacity_dispatch": bool(torch.equal(got, want)),
+            "equal_aux": bool(torch.equal(aux, aux_want)),
+            "aux_at_8": float(aux8), "dense_max_abs_err": err,
+            "dense_tolerance": tol, "dense_err_over_tol": err / tol,
+            "shard_map_seconds": map_s, "capacity_dispatch_seconds": cap_s}
+
+
+def serving_mesh(torch, dev) -> list:
+    """The serving meshes on a one-process nccl group of their own, at
+    full width: the served pair (qwen2-1.5b and yi-6b, bf16, 8 slots a
+    lane, made from ``main_path``'s seed) through ``RoutedServer(mesh=)``
+    (a), speculative decode on a data mesh (b), the FedLoop's mesh sync
+    (c) and the expert-parallel MoE dispatch (d). Tokens, counters and
+    decode launches of every mesh path must equal the solo path's, the
+    mesh sync the in-process one bit for bit, and the MoE dispatch its
+    references. Prints seconds beside the solo paths."""
+    import torch.distributed as dist
+    from repro_torch import routers, sharding as shd
+    from repro_torch.config import RouterConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve.gateway import make_pool_model
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pool = [make_pool_model(a, get_config(a), c, gen=gen, device=dev)
+                for a, c in (("qwen2-1.5b", 0.05), ("yi-6b", 0.4))]
+        router = routers.make("mlp", RouterConfig(num_models=2)).init(
+            gen, device=dev)
+        rows, lanes = _mesh_lanes(torch, dev, ops, pool, router, shd)
+        spec_rows, spec = _mesh_spec(torch, dev, ops, pool, shd)
+        loop_rows, loop = _mesh_loop(torch, dev, ops, pool, shd)
+        moe = _mesh_moe(torch, dev, shd)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    rows += spec_rows + loop_rows
+    bad = []
+    for lane, res in lanes.items():
+        solo = res["solo"]
+        for name, r in res.items():
+            for k in ("tokens", "counters", "launches"):
+                if r[k] != solo[k]:
+                    bad.append(f"{lane} {name}: {k}")
+    for k in ("tokens", "counters", "launches"):
+        if spec["data"][k] != spec["solo"][k]:
+            bad.append(f"spec data: {k}")
+    if not (loop["bit_identical"] and loop["round_trip"]):
+        bad.append(f"fedloop: {loop}")
+    if not (moe["equal_capacity_dispatch"] and moe["equal_aux"]
+            and moe["dense_err_over_tol"] <= 1.0):
+        bad.append(f"moe: {moe}")
+    chunk_bytes = 8 * (8 + 1) * 4          # slots · (chunk + 1) · int32
+    gathered = lanes["paged"]["data"]["step_collectives"]
+    if gathered != {"all-gather": chunk_bytes * lanes["paged"]["data"][
+            "busy_lanes"]}:
+        bad.append(f"step collectives {gathered}")
+    emit({"phase": "serving_mesh", "world": 1, "backend": backend,
+          "lanes": {lane: {name: {k: r[k] for k in r if k != "tokens"}
+                           for name, r in res.items()}
+                    for lane, res in lanes.items()},
+          "tokens_equal": not any("tokens" in b for b in bad),
+          "all_gather_bytes_per_chunk": chunk_bytes,
+          "spec": {name: {k: r[k] for k in r if k != "tokens"}
+                   for name, r in spec.items()},
+          "fedloop": loop, "moe": moe,
+          "seconds": time.perf_counter() - t_phase})
+    del pool, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"serving_mesh: the mesh paths differ from "
+                             f"the solo paths in {bad}")
+    return rows
+
+
 def main() -> None:
     try:
         import torch
@@ -4007,6 +4318,9 @@ def main() -> None:
     new_phases["clients_mesh"] = time.perf_counter() - t0
     emit({"phase": "new_phases_seconds", **new_phases,
           "total": sum(new_phases.values())})
+    t0 = time.perf_counter()
+    paths += serving_mesh(torch, dev)
+    emit({"phase": "serving_mesh_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     paths += features_phase(torch, dev, corpus, split, fitted)
     emit({"phase": "features_done", "seconds": time.perf_counter() - t0})

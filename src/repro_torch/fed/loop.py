@@ -26,8 +26,16 @@ consumes. Padding harvested data to the buffer capacity
 (``pad_to_capacity``, the default) keeps the federated stack's shapes the
 same across syncs.
 
-Not ported yet, raising ``NotImplementedError``: ``FedLoopConfig.mesh``
-(the cross-silo mesh of the sync fits; slice 13 of the port).
+``FedLoopConfig.mesh`` (a ``sharding.client_mesh()``) runs each sync's
+fit on the clients mesh, one process per device: the harvested stack is
+padded to the "clients" axis (``pad_client_axis``: empty clients, zero
+weight), placed with ``shard_clients`` and fitted with
+``fit_federated(mesh=)`` — the in-process fit of the same padded stack.
+Every process runs the loop with the same calls. PyTorch has no buffer
+donation: the reference donates the freshly built slab into the compiled
+fit; here the slab is dropped after the fit. On a mesh ``save`` writes
+from the mesh's first process behind a barrier, and ``restore`` reads in
+every process; a checkpoint restores on a mesh of any size, or on none.
 """
 from __future__ import annotations
 
@@ -38,7 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch import routers
+from repro_torch import sharding as shd
 from repro_torch.config import FedConfig
+from repro_torch.core import federated as F
 from repro_torch.device import on_device
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optim import tree_map
@@ -60,7 +70,8 @@ class FedLoopConfig:
     #: capacity — the same shapes for every sync
     cohort: Optional[int] = None  #: per-round client sampling inside each
     #: sync's fit (parametric families; see core/federated.fedavg)
-    mesh: Any = None  #: cross-silo mesh for the sync fits — not ported yet
+    mesh: Any = None  #: cross-silo clients mesh for the sync fits
+    #: (``sharding.client_mesh()``; see the module doc)
 
 
 def _stream(gen: Union[int, torch.Generator]) -> torch.Generator:
@@ -90,9 +101,7 @@ class FedLoop:
                              "HarvestStore attached (harvest=...)")
         cfg = cfg or FedLoopConfig()
         if cfg.mesh is not None:
-            raise NotImplementedError(
-                "FedLoopConfig(mesh=...) is not ported to the PyTorch loop "
-                "yet (slice 13 of the port)")
+            shd.clients_rank(cfg.mesh)   # a clients mesh, or TypeError
         self.server = server
         self.fcfg = fcfg
         self.aggregator = aggregator
@@ -167,9 +176,19 @@ class FedLoop:
             if not self.cfg.pad_to_capacity:  # unpadded stacks skip empties
                 ids = [c for c in ids if len(harvest.buffer(c)) > 0]
             kw["staleness"] = self._staleness_vector(ids)
+        if self.cfg.mesh is not None:
+            # pad the stack to the clients axis (zero-weight clients), place
+            # it sharded and fit on the mesh
+            _, n = shd.clients_rank(self.cfg.mesh)
+            data, stal = F.pad_client_axis(data, n, kw.get("staleness"))
+            if stal is not None:
+                kw["staleness"] = stal
+            data = shd.shard_clients(data, self.cfg.mesh)
+            kw["mesh"] = self.cfg.mesh
         new_router, hist = routers.fit_federated(
             srv.router, data, self.fcfg, gen=gen,
             rounds=self.cfg.rounds_per_sync, device=srv.device, **kw)
+        del data                 # the sharded slab (no donation in torch)
         srv.swap_router_state(new_router.state)
         self._note_sync()
         # snapshot the engine's resilience counters alongside each sync so
@@ -242,7 +261,16 @@ class FedLoop:
                         in srv._pending_evals.items()],
             "next_rid": int(srv.engine._next_rid),
         }
-        ckpt.save(path, payload)
+        mesh = self.cfg.mesh
+        if mesh is None:
+            ckpt.save(path, payload)
+            return
+        # every process holds the same loop: the mesh's first one writes,
+        # and none returns before the file is whole
+        import torch.distributed as dist
+        if dist.get_rank() == int(mesh.mesh.reshape(-1)[0]):
+            ckpt.save(path, payload)
+        dist.barrier()
 
     def restore(self, path) -> "FedLoop":
         """Load a ``save()`` checkpoint of either package into this

@@ -22,6 +22,15 @@ Paths:
 
 Caches are updated in place (the reference's donated buffers): the decode
 steps write the new K/V into the tensors they are given and return them.
+
+On a ``"heads"`` mesh (``sharding.HeadBlock``, ``heads=``) every decode
+path takes this process's block of KV heads: the caches hold only those
+heads, the projections run whole (the same products as without a mesh)
+and keep the block's q, k and v heads (``q_per_kv`` unchanged), attention
+runs on the local heads, and the heads' outputs are all-gathered in head
+order before ``wo``. That is data movement only, so the output equals the
+solo path's bit for bit; a row-parallel ``wo`` followed by an all-reduce
+would sum in another order. Without ``heads`` nothing of this runs.
 """
 from __future__ import annotations
 
@@ -181,18 +190,21 @@ def _masked_grouped_attn_multi(qg, k_cache, v_cache, valid):
 
 def attn_decode_step(p: dict, x: torch.Tensor, cache: dict,
                      pos: torch.Tensor, cfg: ModelConfig, *,
-                     rolling: bool) -> tuple:
+                     rolling: bool, heads=None) -> tuple:
     """x: (B, 1, d); pos: int32 scalar (whole batch at one position) or
     (B,) vector (continuous batching: each cache row is a slot at its own
     position). Writes the new K/V into ``cache`` in place and returns
     (out, cache). rolling=True → the cache is a sliding window of length W
-    written at ``pos % W``."""
+    written at ``pos % W``. ``heads``: this process's ``HeadBlock``, whose
+    KV heads the cache holds."""
     B = x.shape[0]
     kc, vc = cache["k"], cache["v"]
     W = kc.shape[2]
     per_slot = pos.dim() == 1
     positions = pos[:, None] if per_slot else pos.reshape(1, 1)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    if heads is not None:
+        q, k_new, v_new = heads.take(q, k_new, v_new, cfg.q_per_kv)
     # the reference's dynamic_update_slice clamps the write into the cache
     # (a row index per row even for one position: a 0-d index tensor
     # would be read on the host)
@@ -202,7 +214,7 @@ def attn_decode_step(p: dict, x: torch.Tensor, cache: dict,
     vc[rows, :, slot] = v_new[:, 0].to(vc.dtype)
     n_valid = torch.clamp(pos + 1, max=W)
 
-    Hkv, hd, g = cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    Hkv, hd, g = kc.shape[1], cfg.head_dim, cfg.q_per_kv
     qg = q.reshape(B, Hkv, g, hd)
     if kops.resolve_impl(None, qg) == "cuda":
         out = kops.decode_attention(qg, kc, vc, n_valid).to(vc.dtype)
@@ -213,6 +225,8 @@ def attn_decode_step(p: dict, x: torch.Tensor, cache: dict,
             ar = torch.arange(W, device=x.device)[None, :]
             valid = ar < (n_valid[:, None] if per_slot else n_valid)
             out = _masked_grouped_attn(qg, kc, vc, valid)
+    if heads is not None:
+        out = heads.gather(out)
     out = out.reshape(B, 1, cfg.n_heads * hd)
     return out @ p["wo"], cache
 
@@ -230,19 +244,22 @@ def init_paged_kv_cache(cfg: ModelConfig, pages: int, page_size: int,
 
 def attn_decode_step_paged(p: dict, x: torch.Tensor, cache: dict,
                            page_table: torch.Tensor, pos: torch.Tensor,
-                           cfg: ModelConfig) -> tuple:
+                           cfg: ModelConfig, heads=None) -> tuple:
     """One-token decode against the paged pool. x: (B, 1, d); cache leaves
     (P, Hkv, page_size, hd) shared by all rows; page_table: (B, npg) int32
     pool page per logical block; pos: (B,) int32 absolute positions.
 
     The new K/V lands at (page_table[b, pos_b // ps], pos_b % ps); rows
     whose entry is the trash page (0) scatter harmlessly there. Writes the
-    pool in place and returns (out, cache)."""
+    pool in place and returns (out, cache). ``heads`` as in
+    ``attn_decode_step``."""
     B = x.shape[0]
     kc, vc = cache["k"], cache["v"]
     ps = kc.shape[2]
     npg = page_table.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
+    if heads is not None:
+        q, k_new, v_new = heads.take(q, k_new, v_new, cfg.q_per_kv)
     blk = torch.clamp(pos // ps, max=npg - 1).long()
     pages = page_table.long().gather(1, blk[:, None])[:, 0]
     off = (pos % ps).long()
@@ -250,7 +267,7 @@ def attn_decode_step_paged(p: dict, x: torch.Tensor, cache: dict,
     kc[pages, :, off] = k_new[:, 0].to(kc.dtype)
     vc[pages, :, off] = v_new[:, 0].to(vc.dtype)
 
-    Hkv, hd, g = cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    Hkv, hd, g = kc.shape[1], cfg.head_dim, cfg.q_per_kv
     qg = q.reshape(B, Hkv, g, hd)
     nv = pos + 1
     if kops.resolve_impl(None, qg) == "cuda":
@@ -269,7 +286,10 @@ def attn_decode_step_paged(p: dict, x: torch.Tensor, cache: dict,
             out = _masked_grouped_attn(qg, paged_gather_ref(kc, page_table),
                                        paged_gather_ref(vc, page_table),
                                        valid)
-    out = out.to(vc.dtype).reshape(B, 1, cfg.n_heads * hd)
+    out = out.to(vc.dtype)
+    if heads is not None:
+        out = heads.gather(out)
+    out = out.reshape(B, 1, cfg.n_heads * hd)
     return out @ p["wo"], cache
 
 
@@ -299,7 +319,7 @@ def verify_slot_writes(pos, T: int, W: int, device) -> tuple:
 
 def attn_decode_verify(p: dict, x: torch.Tensor, cache: dict,
                        pos: torch.Tensor, cfg: ModelConfig,
-                       writes: tuple) -> tuple:
+                       writes: tuple, heads=None) -> tuple:
     """Multi-position decode against the uniform slot pool: row b carries
     T consecutive tokens at positions pos_b .. pos_b + T - 1 (the last
     committed token and the drafted window). x: (B, T, d); pos: (B,)
@@ -309,18 +329,23 @@ def attn_decode_verify(p: dict, x: torch.Tensor, cache: dict,
     ``verify_slot_writes``, computed once for all layers. A rejected
     suffix rolls back by the engine not advancing ``pos``: its stale K/V
     stays masked until a later step overwrites it. Writes the pool in
-    place; returns (out (B, T, d), cache)."""
+    place; returns (out (B, T, d), cache). ``heads`` as in
+    ``attn_decode_step``."""
     B, T, _ = x.shape
     kc, vc = cache["k"], cache["v"]
     W = kc.shape[2]
     positions = verify_positions(pos, T)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)  # (B, T, H*, hd)
+    if heads is not None:
+        q, k_new, v_new = heads.take(q, k_new, v_new, cfg.q_per_kv)
     b, t, w = writes
     kc[b, :, w] = k_new[b, t].to(kc.dtype)
     vc[b, :, w] = v_new[b, t].to(vc.dtype)
     n_valid = torch.clamp(positions + 1, max=W)            # (B, T)
-    qg = q.reshape(B, T, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    qg = q.reshape(B, T, kc.shape[1], cfg.q_per_kv, cfg.head_dim)
     out = verify_attention(qg, kc, vc, n_valid)
+    if heads is not None:
+        out = heads.gather(out)
     return out.reshape(B, T, -1) @ p["wo"], cache
 
 
@@ -344,7 +369,7 @@ def verify_attention(qg, kc, vc, n_valid):
 
 def attn_decode_verify_paged(p: dict, x: torch.Tensor, cache: dict,
                              page_table: torch.Tensor, pos: torch.Tensor,
-                             cfg: ModelConfig) -> tuple:
+                             cfg: ModelConfig, heads=None) -> tuple:
     """Multi-position decode against the page pool — the paged twin of
     ``attn_decode_verify``. x: (B, T, d); page_table: (B, npg) int32;
     pos: (B,) int32. Each position's K/V lands in its own page; positions
@@ -353,13 +378,16 @@ def attn_decode_verify_paged(p: dict, x: torch.Tensor, cache: dict,
     page. On CUDA the T offsets fold into the batch: one launch of the
     paged kernel over B·T rows, each row's table repeated and
     n_valid = min(pos + t + 1, npg · ps). Writes the pool in place;
-    returns (out (B, T, d), cache)."""
+    returns (out (B, T, d), cache). ``heads`` as in
+    ``attn_decode_step``."""
     B, T, _ = x.shape
     kc, vc = cache["k"], cache["v"]
     ps = kc.shape[2]
     npg = page_table.shape[1]
     positions = verify_positions(pos, T)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)  # (B, T, H*, hd)
+    if heads is not None:
+        q, k_new, v_new = heads.take(q, k_new, v_new, cfg.q_per_kv)
     blk = torch.clamp(positions // ps, max=npg - 1).long()
     pages = page_table.long().gather(1, blk)
     pages = torch.where(positions < npg * ps, pages,
@@ -369,8 +397,10 @@ def attn_decode_verify_paged(p: dict, x: torch.Tensor, cache: dict,
     kc[pages, :, off] = k_new.to(kc.dtype)
     vc[pages, :, off] = v_new.to(vc.dtype)
     n_valid = torch.clamp(positions + 1, max=npg * ps)    # (B, T)
-    qg = q.reshape(B, T, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    qg = q.reshape(B, T, kc.shape[1], cfg.q_per_kv, cfg.head_dim)
     out = verify_attention_paged(qg, kc, vc, page_table, n_valid)
+    if heads is not None:
+        out = heads.gather(out)
     return out.reshape(B, T, -1) @ p["wo"], cache
 
 

@@ -338,34 +338,38 @@ def _decode(params, cache, cfg, tokens, embeds, attn, moe_mode="dense"):
 
 def decode_step(params: dict, cache: dict, cfg: ModelConfig, *,
                 tokens=None, embeds=None, pos, rolling: bool = False,
-                moe_mode: str = "dense"):
+                moe_mode: str = "dense", heads=None):
     """One-token decode. tokens: (B,1) int or embeds: (B,1,d); pos: int32
     scalar or (B,) vector (continuous batching). Writes the cache in place;
-    returns (logits (B,1,V), cache)."""
+    returns (logits (B,1,V), cache). ``heads``: this process's
+    ``sharding.HeadBlock`` on a "heads" mesh, whose KV heads the cache
+    holds (``attention.py``)."""
     pos = torch.as_tensor(pos, dtype=torch.int32,
                           device=params_device(params))
     return _decode(params, cache, cfg, tokens, embeds,
                    lambda p, h, c: A.attn_decode_step(p, h, c, pos, cfg,
-                                                      rolling=rolling),
+                                                      rolling=rolling,
+                                                      heads=heads),
                    moe_mode)
 
 
 def decode_step_paged(params: dict, cache: dict, cfg: ModelConfig, *,
-                      tokens=None, embeds=None, page_table, pos):
+                      tokens=None, embeds=None, page_table, pos, heads=None):
     """One-token decode against the paged pool (``init_paged_cache``).
     page_table: (B, npg) int32 pool page ids per logical block, shared by
     every layer; pos: (B,) int32 per-row positions. Writes the pool in
-    place; returns (logits (B,1,V), cache)."""
+    place; returns (logits (B,1,V), cache). ``heads`` as in
+    ``decode_step``."""
     dev = params_device(params)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     page_table = torch.as_tensor(page_table, dtype=torch.int32, device=dev)
     return _decode(params, cache, cfg, tokens, embeds,
                    lambda p, h, c: A.attn_decode_step_paged(
-                       p, h, c, page_table, pos, cfg))
+                       p, h, c, page_table, pos, cfg, heads))
 
 
 def decode_verify(params: dict, cache: dict, cfg: ModelConfig, *, tokens,
-                  pos):
+                  pos, heads=None):
     """Speculative verify: T consecutive positions per row in one call.
     tokens: (B, T) int32 — each row's last committed token and its T - 1
     drafts; pos: (B,) int32 base positions (where tokens[:, 0] is
@@ -373,7 +377,7 @@ def decode_verify(params: dict, cache: dict, cfg: ModelConfig, *, tokens,
     attends below its own causal bound, so the logits (B, T, V) are,
     position by position, what the one-token ``decode_step`` chain would
     give. Attention-only archs. Writes the slot pool in place; returns
-    (logits, cache)."""
+    (logits, cache). ``heads`` as in ``decode_step``."""
     if cfg.arch_type in ("ssm", "hybrid"):
         raise TypeError(f"{cfg.name}: speculative verify needs per-position "
                         "KV — SSM state cannot roll back a rejected suffix")
@@ -386,19 +390,20 @@ def decode_verify(params: dict, cache: dict, cfg: ModelConfig, *, tokens,
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     return _decode(params, cache, cfg, tokens, None,
                    lambda p, h, c: A.attn_decode_verify(p, h, c, pos, cfg,
-                                                        writes))
+                                                        writes, heads))
 
 
 def decode_verify_paged(params: dict, cache: dict, cfg: ModelConfig, *,
-                        tokens, page_table, pos):
+                        tokens, page_table, pos, heads=None):
     """Paged twin of ``decode_verify`` (pool from ``init_paged_cache``).
     tokens: (B, T) int32; page_table: (B, npg) int32; pos: (B,) int32.
     Write-ahead past a row's claimed pages lands in the trash page.
-    Writes the pool in place; returns (logits (B, T, V), cache)."""
+    Writes the pool in place; returns (logits (B, T, V), cache). ``heads``
+    as in ``decode_step``."""
     dev = params_device(params)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     page_table = torch.as_tensor(page_table, dtype=torch.int32, device=dev)
     tokens = torch.as_tensor(tokens, device=dev)
     return _decode(params, cache, cfg, tokens, None,
                    lambda p, h, c: A.attn_decode_verify_paged(
-                       p, h, c, page_table, pos, cfg))
+                       p, h, c, page_table, pos, cfg, heads))

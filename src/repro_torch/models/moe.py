@@ -16,8 +16,26 @@ Two dispatch implementations (selected by ``mode``), as in the reference:
 
 Neither has a Pallas kernel in the reference, so both are plain PyTorch.
 The router's load-balance auxiliary loss (Switch eq. 4) is returned beside
-the output. The expert-parallel capacity dispatch on a mesh
-(``_capacity_shard_map``) is not ported (slice 13 of the port).
+the output.
+
+**Expert parallelism** (``_capacity_shard_map``): under
+``sharding.use_rules(mesh, rules)`` with a ``"tokens"`` and an
+``"experts"`` rule, ``mode="capacity"`` runs the reference's shard_map
+dispatch over ``torch.distributed``, one process per device: each process
+takes its block of tokens and its E/n experts, runs the capacity dispatch
+locally (C = max(1, int(T_loc·k·cf) // E), the local expert count as the
+drop bucket), sums the outputs over the experts axis (an all-reduce) and
+all-gathers the token blocks, so every process returns the whole (T, d).
+The aux loss averages counts and importance over the tokens axis before
+their product, as the reference's ``pmean`` does. Without an experts axis,
+or when it does not divide E, the single-block dispatch runs, as in the
+reference. The weights are whole in every process (the port's parameters
+are plain tensors, made the same in every process by
+``sharding.replicate``) and each process slices its experts' block, a
+view: the reference's FSDP all-gather over "data" brings back, inside the
+block, exactly those whole expert weights from their d-sharded pieces, so
+the products are the same; holding the whole weights trades that
+collective for memory.
 """
 from __future__ import annotations
 
@@ -26,6 +44,7 @@ from collections import Counter
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.costs import kernel as counted
 from repro_torch.kernels.costs import measure
@@ -91,9 +110,14 @@ def _aux_loss(probs, top_ids, cfg: ModelConfig):
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str = "dense", capacity_factor: float = 1.25) -> tuple:
-    """x: (B, S, d) → (out (B, S, d), aux_loss scalar)."""
+    """x: (B, S, d) → (out (B, S, d), aux_loss scalar). Under active
+    logical-axis rules ``mode="capacity"`` runs the expert-parallel
+    dispatch (``_capacity_shard_map``)."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
+    if mode == "capacity" and shd.active():
+        out, aux = _capacity_shard_map(p, xt, cfg, capacity_factor)
+        return out.reshape(B, S, d).to(x.dtype), aux * cfg.moe.aux_coef
     top_w, top_ids, probs = _router_probs(p, xt, cfg)
     aux = _aux_loss(probs, top_ids, cfg) * cfg.moe.aux_coef
     if mode == "dense":
@@ -265,12 +289,68 @@ def _dense_dispatch(p, xt, top_w, top_ids, cfg: ModelConfig):
 
 
 def _capacity_shard_map(p, xt, cfg: ModelConfig, cf: float):
-    """The reference's expert-parallel capacity dispatch under
-    ``shard_map``: mesh work, not ported (queued in ROADMAP.md)."""
-    raise NotImplementedError(
-        "moe: the expert-parallel capacity dispatch on a mesh "
-        "(_capacity_shard_map) is not ported — it waits for the serving "
-        "meshes, slice 13 of the port (ROADMAP.md)")
+    """The expert-parallel capacity dispatch under the active rules (see
+    the module doc). xt: (T, d), the same in every process; returns the
+    whole (out (T, d), aux loss) in every process."""
+    mesh, rules = shd.current()
+    tok_ax, exp_ax = rules.get("tokens"), rules.get("experts")
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    n_exp = shd.axis_size(mesh, exp_ax) if exp_ax else 1
+    if exp_ax is None or E % n_exp != 0:
+        # cannot expert-shard — the single-block path
+        top_w, top_ids, probs = _router_probs(p, xt, cfg)
+        return (_capacity_dispatch(p, xt, top_w, top_ids, cfg, cf),
+                _aux_loss(probs, top_ids, cfg))
+    T, d = xt.shape
+    n_tok = shd.axis_size(mesh, tok_ax)
+    if T % n_tok:
+        raise ValueError(f"{T} tokens do not divide the tokens axis "
+                         f"{tok_ax} ({n_tok} processes)")
+    T_loc, E_loc = T // n_tok, E // n_exp
+    t0 = shd.axis_index(mesh, tok_ax) * T_loc
+    lo = shd.axis_index(mesh, exp_ax) * E_loc
+    x_loc = xt[t0:t0 + T_loc]
+    w = {n: p[n][lo:lo + E_loc] for n in ("wg", "wu", "wd")}
+    dev = xt.device
+
+    top_w, top_ids, probs = _router_probs(p, x_loc, cfg)
+    local = (top_ids >= lo) & (top_ids < lo + E_loc)
+    ids_loc = torch.where(local, top_ids - lo,
+                          torch.full_like(top_ids, E_loc))  # drop bucket
+    w_loc = torch.where(local, top_w, torch.zeros_like(top_w))
+    C = max(1, int(T_loc * k * cf) // E)
+    flat_e = ids_loc.reshape(-1)
+    flat_w = w_loc.reshape(-1)
+    flat_t = torch.arange(T_loc, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, sw, stk = flat_e[order], flat_w[order], flat_t[order]
+    counts = torch.bincount(flat_e, minlength=E_loc + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T_loc * k, device=dev) - starts[se]
+    keep = (pos < C) & (se < E_loc)
+    pos_c = torch.where(keep, pos, torch.zeros_like(pos))
+    se_c = torch.where(keep, se, torch.zeros_like(se))
+    # dropped entries add zeros at slot 0 of expert 0
+    buf = torch.zeros((E_loc, C, d), dtype=x_loc.dtype, device=dev)
+    buf.index_put_((se_c, pos_c), torch.where(
+        keep[:, None], x_loc[stk], torch.zeros((), dtype=x_loc.dtype,
+                                               device=dev)), accumulate=True)
+    ye = _expert_mlp(w, buf)                              # (E_loc, C, d)
+    y_tok = ye[se_c, pos_c] * torch.where(
+        keep, sw, torch.zeros_like(sw))[:, None].to(ye.dtype)
+    out = torch.zeros_like(x_loc).index_add_(0, stk, y_tok.to(x_loc.dtype))
+    out = shd.all_reduce_sum(out, mesh, exp_ax)
+    # the aux loss (Switch eq. 4) is bilinear in two means: both are
+    # averaged over the token blocks BEFORE the product, as the global term
+    first = top_ids[:, 0]
+    counts = torch.zeros(E, device=dev).scatter_add_(
+        0, first, torch.ones(T_loc, device=dev)) / T_loc
+    imp = torch.mean(probs, dim=0)
+    if tok_ax:
+        counts = shd.all_reduce_sum(counts, mesh, tok_ax) / n_tok
+        imp = shd.all_reduce_sum(imp, mesh, tok_ax) / n_tok
+    aux = E * torch.sum(counts * imp)
+    return shd.all_gather_axis(out, mesh, tok_ax) if tok_ax else out, aux
 
 
 def _capacity_dispatch(p, xt, top_w, top_ids, cfg: ModelConfig, cf: float):

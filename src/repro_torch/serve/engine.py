@@ -51,8 +51,26 @@ mates). SSM and hybrid models are refused with ``TypeError``, as in the
 reference: their state integrates every position, pad included, so they
 cannot share padded buckets; the gateway serves them per call.
 
-Not ported yet, raising ``NotImplementedError`` (slice 13 of the port,
-queued in ROADMAP.md): the cross-silo ``mesh``.
+**Cross-silo mesh** (``mesh=``, a ``DeviceMesh`` from ``sharding`` over
+the whole default process group, one process per device: nccl with CUDA,
+gloo with the CPU). Every process runs the same host bookkeeping — the
+caller submits the same requests in every process, the usual SPMD driver
+— and holds its block of each KV pool (``sharding.shard_kv_pool``): its
+slots over ``"data"`` and its KV heads over ``"heads"``. Every process
+prefills each admission (the same prefill as solo); a slot's owner writes
+its block of heads into its pool. Each process decodes its slots
+(``sharding.SlotBlock``), and one all-gather over ``"data"`` of the chunk's
+``(slots/n, chunk + 1)`` int32 tokens replaces the chunk's one
+device-to-host copy, so every process sees the whole batch; over
+``"heads"`` each layer attends over the process's heads and all-gathers
+their outputs in head order (``models/attention.py``). Speculative rounds
+split the drafter pools the same way, and gather the drafts and the
+verify's argmax. Tokens and ``counters()`` equal the solo engine's. A
+paged lane keeps its page pool whole on the page dimension in every
+process (the reference's ``kv_pool_spec`` would split pages over
+``"data"`` where they divide it): its slots are split, each process writes
+only its slots' pages, and the page table stays the same host state in
+every process. Without a mesh the engine runs as it always did.
 """
 from __future__ import annotations
 
@@ -64,6 +82,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as mdl
@@ -183,7 +202,8 @@ class _Lane:
     """Per-model engine state: the KV pool (paged or uniform), the
     drafters' pools, and the host-side slot and page bookkeeping."""
 
-    def __init__(self, pm, ecfg: EngineConfig, device: torch.device):
+    def __init__(self, pm, ecfg: EngineConfig, device: torch.device,
+                 mesh=None):
         self.pm = pm
         self.paged = bool(ecfg.page_size)
         if self.paged:
@@ -205,6 +225,38 @@ class _Lane:
         #: slot s; a row holds garbage until the draft prefill of its next
         #: occupant drafting with that model overwrites it.
         self.draft_pools: Dict[int, dict] = {}
+        #: on a mesh: this process's block of the slots (``rows`` are the
+        #: slots it decodes) and of the KV heads of the target and of each
+        #: drafter; None where that dimension is not split
+        self.slots: Optional[shd.SlotBlock] = None
+        self.heads: Optional[shd.HeadBlock] = None
+        self.draft_heads: Dict[int, Optional[shd.HeadBlock]] = {}
+        self.rows = slice(0, ecfg.slots)
+        if mesh is not None:
+            shd.replicate(pm.params, mesh)
+            self.slots = shd.SlotBlock.of(mesh, ecfg.slots)
+            self.heads = shd.HeadBlock.of(mesh, pm.cfg.n_kv_heads)
+            if self.slots is not None:
+                self.rows = self.slots.rows
+            self.pool = shd.shard_kv_pool(self.pool, mesh, paged=self.paged)
+
+    def write_slot(self, pool: dict, heads, kv: dict, slot: int) -> None:
+        """Write a one-row prefill cache into row ``slot`` of a slot pool
+        (the target's or a drafter's, whose head block is ``heads``): on a
+        mesh only the slot's owner writes, and only its heads."""
+        if self.slots is not None:
+            if not self.slots.owns(slot):
+                return
+            slot -= self.slots.lo
+        write_slot(pool, kv if heads is None else heads.kv(kv), slot)
+
+    def host(self, t: torch.Tensor) -> np.ndarray:
+        """(rows, ...) results of the slots this process decodes →
+        (slots, ...) numpy: on a slot-split lane one all-gather over
+        "data" first, then the one device-to-host copy."""
+        if self.slots is not None:
+            t = self.slots.gather(t)
+        return t.cpu().numpy()
 
 
 def _prefill(cfg: ModelConfig, params, toks: np.ndarray, last_pos,
@@ -232,10 +284,27 @@ class ServeEngine:
     def __init__(self, pool: List, ecfg: Optional[EngineConfig] = None, *,
                  mesh=None, device: DeviceLike = None):
         self.ecfg = ecfg = ecfg or EngineConfig()
+        self.device = resolve_device(device)
+        #: the cross-silo mesh (see the module doc); None runs solo
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("ServeEngine: cross-silo mesh execution "
-                                      "is not ported to the PyTorch engine "
-                                      "yet (slice 13 of the port)")
+            names = getattr(mesh, "mesh_dim_names", None)
+            if names is None:
+                raise TypeError(
+                    "ServeEngine mesh= must be a DeviceMesh with a \"data\" "
+                    "and/or \"heads\" dimension (sharding.data_mesh()/"
+                    f"head_mesh()/make_mesh()), got {type(mesh).__name__}")
+            if not any(a in names for a in ("data", "heads")):
+                raise ValueError(
+                    f"ServeEngine mesh carries axes {tuple(names)} — the "
+                    "engine shards over \"data\" (slot-parallel) and/or "
+                    "\"heads\" (tensor-parallel); build one with "
+                    "sharding.data_mesh()/head_mesh()/make_mesh()")
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"ServeEngine mesh is over {mesh.device_type} devices "
+                    f"(nccl runs CUDA, gloo the CPU), the engine on "
+                    f"{self.device}")
         if ecfg.reserve not in ("lifetime", "initial"):
             raise ValueError(f"EngineConfig.reserve={ecfg.reserve!r}: "
                              "expected 'lifetime' or 'initial'")
@@ -258,7 +327,6 @@ class ServeEngine:
                 raise ValueError(
                     f"EngineConfig.draft={ecfg.draft}: not a model pool "
                     f"index (pool has {len(pool)} models)")
-        self.device = resolve_device(device)
         self.pool = pool
         self._lanes: Dict[int, _Lane] = {}
         self._next_rid = 0
@@ -410,7 +478,7 @@ class ServeEngine:
         self._next_rid += 1
         if lane is None:
             lane = self._lanes[int(model_idx)] = _Lane(pm, self.ecfg,
-                                                       self.device)
+                                                       self.device, self.mesh)
         pend = _Pending(rid, toks, max_new, t_submit=time.perf_counter(),
                         deadline=(self._steps + int(deadline)
                                   if deadline is not None else None),
@@ -695,14 +763,22 @@ class ServeEngine:
         target's committed ``lane.tok``."""
         dpm = self.pool[draft_idx]
         if draft_idx not in lane.draft_pools:
-            lane.draft_pools[draft_idx] = alloc_draft_pool(
-                dpm.cfg, self.ecfg.slots, self.ecfg.max_seq,
-                self.ecfg.spec_k, device=self.device)
+            dpool = alloc_draft_pool(dpm.cfg, self.ecfg.slots,
+                                     self.ecfg.max_seq, self.ecfg.spec_k,
+                                     device=self.device)
+            if self.mesh is not None:
+                if dpm is not lane.pm:      # a target's lane replicated it
+                    shd.replicate(dpm.params, self.mesh)
+                dpool = shd.shard_kv_pool(dpool, self.mesh)
+                lane.draft_heads[draft_idx] = shd.HeadBlock.of(
+                    self.mesh, dpm.cfg.n_kv_heads)
+            lane.draft_pools[draft_idx] = dpool
         S = len(full)
         toks_p = np.zeros((1, next_pow2(S)), np.int32)
         toks_p[0, :S] = full
         _, kv = _prefill(dpm.cfg, dpm.params, toks_p, S - 1, self.device)
-        write_slot(lane.draft_pools[draft_idx], kv, slot)
+        lane.write_slot(lane.draft_pools[draft_idx],
+                        lane.draft_heads.get(draft_idx), kv, slot)
 
     def _admit(self, lane: _Lane) -> None:
         if lane.paged:
@@ -717,7 +793,7 @@ class ServeEngine:
             toks_p = np.zeros((1, next_pow2(S)), np.int32)
             toks_p[0, :S] = full
             tok0, kv = _prefill(cfg, params, toks_p, S - 1, self.device)
-            write_slot(lane.pool, kv, slot)
+            lane.write_slot(lane.pool, lane.heads, kv, slot)
             if self.ecfg.spec_k:
                 self._admit_draft(lane, slot, req.draft, full)
             self.admission_lat.append(time.perf_counter() - req.t_submit)
@@ -772,7 +848,16 @@ class ServeEngine:
                 last[r] = S - 1
                 pages_mat[r] = pages[:n_pp]
             tok0, kv = _prefill(cfg, params, toks_p, last, self.device)
-            write_prefill_pages(lane.pool, kv, pages_mat)
+            if lane.slots is not None:      # only this process's slots
+                mine = [r for r, it in enumerate(items)
+                        if lane.slots.owns(it[1])]
+                kv = {n: {k: t[:, mine] for k, t in layer.items()}
+                      for n, layer in kv.items()}
+                pages_mat = pages_mat[mine]
+            if lane.heads is not None:
+                kv = lane.heads.kv(kv)
+            if len(pages_mat):
+                write_prefill_pages(lane.pool, kv, pages_mat)
             tok0 = tok0.cpu().numpy()
             now = time.perf_counter()
             for r, (req, slot, S, _, _) in enumerate(items):
@@ -796,18 +881,21 @@ class ServeEngine:
         dpm = self.pool[d]
         mask = np.zeros((self.ecfg.slots,), bool)
         mask[slots] = True
-        tok = torch.as_tensor(np.where(mask, lane.tok, 0).astype(np.int32),
+        r = lane.rows
+        tok = torch.as_tensor(np.where(mask, lane.tok, 0)[r].astype(np.int32),
                               device=self.device)
-        pos = torch.as_tensor(np.where(mask, lane.pos, 0).astype(np.int32),
+        pos = torch.as_tensor(np.where(mask, lane.pos, 0)[r].astype(np.int32),
                               device=self.device)
+        heads = lane.draft_heads.get(d)
         out = []
         for _ in range(self.ecfg.spec_k):
             logits, _ = mdl.decode_step(dpm.params, lane.draft_pools[d],
-                                        dpm.cfg, tokens=tok[:, None], pos=pos)
+                                        dpm.cfg, tokens=tok[:, None], pos=pos,
+                                        heads=heads)
             tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
             out.append(tok)
             pos = pos + 1
-        return torch.stack(out, dim=1).cpu().numpy()
+        return lane.host(torch.stack(out, dim=1))
 
     def _decode_spec_round(self, lane: _Lane) -> None:
         """One draft/verify round (in place of ``_decode_chunk`` when
@@ -838,14 +926,17 @@ class ServeEngine:
             drafted[slots] = self._draft(lane, d, slots)[slots]
         ver_tok = np.concatenate([lane.tok[:, None], drafted[:, :k - 1]],
                                  axis=1)
+        r = lane.rows
         if lane.paged:
             logits, _ = mdl.decode_verify_paged(
-                lane.pm.params, lane.pool, cfg, tokens=ver_tok,
-                page_table=lane.pt.table, pos=lane.pos)
+                lane.pm.params, lane.pool, cfg, tokens=ver_tok[r],
+                page_table=lane.pt.table[r], pos=lane.pos[r],
+                heads=lane.heads)
         else:
             logits, _ = mdl.decode_verify(lane.pm.params, lane.pool, cfg,
-                                          tokens=ver_tok, pos=lane.pos)
-        g = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+                                          tokens=ver_tok[r], pos=lane.pos[r],
+                                          heads=lane.heads)
+        g = lane.host(torch.argmax(logits, dim=-1).to(torch.int32))
         self.spec_rounds += 1
         for slot in list(lane.active):
             st = lane.active[slot]
@@ -876,25 +967,27 @@ class ServeEngine:
         prefill and decode write every position before validity reaches
         it, so nothing they write is ever attended."""
         cfg, ecfg, params = lane.pm.cfg, self.ecfg, lane.pm.params
-        dev = self.device
-        tok = torch.as_tensor(lane.tok, device=dev)
-        pos = torch.as_tensor(lane.pos, device=dev)
-        table = (torch.as_tensor(lane.pt.table, device=dev) if lane.paged
+        dev, r, heads = self.device, lane.rows, lane.heads
+        tok = torch.as_tensor(lane.tok[r], device=dev)
+        pos = torch.as_tensor(lane.pos[r], device=dev)
+        table = (torch.as_tensor(lane.pt.table[r], device=dev) if lane.paged
                  else None)
         out = []
         for _ in range(ecfg.chunk):
             if lane.paged:
                 logits, _ = mdl.decode_step_paged(
                     params, lane.pool, cfg, tokens=tok[:, None],
-                    page_table=table, pos=pos)
+                    page_table=table, pos=pos, heads=heads)
             else:
                 logits, _ = mdl.decode_step(params, lane.pool, cfg,
-                                            tokens=tok[:, None], pos=pos)
+                                            tokens=tok[:, None], pos=pos,
+                                            heads=heads)
             out.append(tok)
             tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
             pos = pos + 1
-        # one device → host copy per chunk: the emitted tokens + the carry
-        out_np = torch.stack(out + [tok], dim=1).cpu().numpy()
+        # one device → host copy per chunk (on a slot-split lane after one
+        # all-gather): the emitted tokens + the carry
+        out_np = lane.host(torch.stack(out + [tok], dim=1))
         active = np.zeros((ecfg.slots,), bool)
         active[list(lane.active)] = True
         lane.tok = np.where(active, out_np[:, -1], 0).astype(np.int32)

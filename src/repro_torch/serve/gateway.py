@@ -33,8 +33,13 @@ down the router's own ranking. ``swap_router_state`` hot-swaps refitted
 state of the same structure, and ``add_model`` onboards a pool model with
 its expanded router; both bump ``router_version``.
 
-Not ported yet, raising ``NotImplementedError``: the cross-silo mesh
-(slice 13 of the port).
+``mesh=`` (a ``DeviceMesh`` with a ``"data"`` and/or ``"heads"``
+dimension, from ``sharding``) hands the mesh to the engine: its KV pools
+split over the mesh's processes (``serve/engine.py``). Every process runs
+the gateway with the same calls — routing, harvest, failover and hot-swap
+are host work and run the same in each — and returns the same tokens. The
+per-call path (``engine=False``, SSM and hybrid models) stays unsharded,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -121,10 +126,6 @@ class RoutedServer:
                  harvest=None, fault_plan=None, max_retries: int = 2,
                  retry_backoff: float = 0.0, mesh=None,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RoutedServer(mesh=...) is not ported to the PyTorch "
-                "gateway yet (slice 13 of the port)")
         self.device = resolve_device(device)
         if not isinstance(router, Router):
             raise TypeError("RoutedServer takes a repro_torch.routers.Router "
@@ -147,7 +148,11 @@ class RoutedServer:
         self.pool = pool
         self.router = router
         self.d_emb = router.rcfg.d_emb
-        self.engine = ServeEngine(pool, engine_cfg, device=self.device)
+        #: the engine's cross-silo mesh (None: solo); the per-call path
+        #: stays unsharded
+        self.mesh = mesh
+        self.engine = ServeEngine(pool, engine_cfg, mesh=mesh,
+                                  device=self.device)
         # the harvest: rid → (client, x, model, cost estimate) until the
         # client reports; bounded tombstones say why a rid is unknown
         self.harvest = harvest

@@ -357,8 +357,10 @@ def test_empty_harvest_never_syncs(loop_setup):
 
 
 def test_loop_refuses_a_mesh_and_a_stream_on_another_device(params):
+    """The loop's mesh must be a clients mesh (its sync is
+    ``tests/test_torch_serving_mesh.py``'s)."""
     srv = make_server(params)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="'clients' dimension"):
         FedLoop(srv, FCFG, gen=0, cfg=FedLoopConfig(mesh=object()))
     with pytest.raises(ValueError, match="HarvestStore"):
         FedLoop(RoutedServer(srv.pool, srv.router, device="cpu"), FCFG,

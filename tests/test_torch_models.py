@@ -7,6 +7,7 @@ and the speculative verify (``decode_verify[_paged]``, write-ahead past the
 region dropped or sent to the trash page) agree to 1e-4, and greedy tokens
 are equal.
 """
+import types
 from dataclasses import asdict
 
 import jax
@@ -312,18 +313,28 @@ def test_bf16_weights_convert_bit_for_bit():
 
 def test_unported_architectures_raise():
     """Every arch initializes now (tests/test_torch_archs.py holds them
-    against the reference); what stays unported raises: the MoE's
-    expert-parallel dispatch on a mesh. SSM state has no pages, so the
-    paged pool refuses SSM and hybrid archs, as the reference does."""
+    against the reference), the MoE's expert-parallel dispatch included:
+    outside logical-axis rules it raises TypeError, as the reference's
+    does (its mesh runs are tests/test_torch_serving_mesh.py's). SSM state
+    has no pages, so the paged pool refuses SSM and hybrid archs, as the
+    reference does."""
+    from repro_torch import sharding as shd
     from repro_torch.models import moe
     for arch in ("phi3.5-moe-42b-a6.6b", "mamba2-370m"):
         cfg = get_config(arch).reduced()
         params = mdl.init_params(0, cfg, device="cpu")
         if cfg.moe is not None:
-            with pytest.raises(NotImplementedError, match="mesh"):
-                moe._capacity_shard_map(params["blocks"]["l0"]["ffn"],
-                                        torch.zeros((2, cfg.d_model)), cfg,
-                                        1.25)
+            ffn = {k: v[0] for k, v in params["blocks"]["l0"]["ffn"].items()}
+            xt = torch.zeros((2, cfg.d_model))
+            with pytest.raises(TypeError, match="use_rules"):
+                moe._capacity_shard_map(ffn, xt, cfg, 1.25)
+            # rules without an experts axis: the single-block dispatch
+            mesh = types.SimpleNamespace(shape={"data": 1})
+            with shd.use_rules(mesh, {"tokens": "data"}):
+                got = moe._capacity_shard_map(ffn, xt, cfg, 1.25)
+            tw, ti, pr = moe._router_probs(ffn, xt, cfg)
+            assert torch.equal(got[0], moe._capacity_dispatch(
+                ffn, xt, tw, ti, cfg, 1.25))
         else:
             with pytest.raises(TypeError, match="paged"):
                 mdl.init_paged_cache(cfg, 4, 8, device="cpu")

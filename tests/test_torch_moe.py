@@ -146,5 +146,8 @@ def test_unknown_mode_and_mesh_dispatch_raise(layer):
     x = torch.zeros((1, 2, cfg.d_model))
     with pytest.raises(ValueError, match="moe mode"):
         tmoe.moe_forward(tp, x, cfg, mode="megablox")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the expert-parallel dispatch runs under logical-axis rules only
+    # (the reference's raises TypeError there too; its mesh runs are
+    # tests/test_torch_serving_mesh.py's)
+    with pytest.raises(TypeError, match="use_rules"):
         tmoe._capacity_shard_map(tp, x[0], cfg, 1.25)

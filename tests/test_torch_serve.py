@@ -7,6 +7,8 @@ routes the same prompts to the same models and emits the same greedy
 tokens as the JAX RoutedServer on the same weights (reduced qwen2-1.5b and
 yi-6b in f32), and the page-pool writes agree bit for bit.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,25 +165,30 @@ def test_page_table_bookkeeping():
                                 dict(queue_cap=4),
                                 dict(lane_quotas=((0, 2),))])
 def test_unported_engine_features_raise(kw):
-    """Of the engine's features only the cross-silo mesh is not ported:
-    each of these configurations builds an engine that serves, and raises
-    only with a mesh."""
+    """Every engine feature is ported: each of these configurations
+    builds an engine that serves, and a ``mesh=`` that is not a mesh with
+    a "data" or "heads" dimension is refused (the mesh paths are
+    ``tests/test_torch_serving_mesh.py``'s)."""
     pool = [make_pool_model("tiny", TINY, 0.1, device="cpu")]
     eng = ServeEngine(pool, EngineConfig(**kw), device="cpu")
     rid = eng.submit(0, np.arange(1, 6, dtype=np.int32), 4)
     assert eng.drain()[rid].shape == (4,)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="\"data\" and/or \"heads\""):
         ServeEngine(pool, EngineConfig(**kw), mesh=object(), device="cpu")
 
 
 def test_unported_gateway_features_raise():
+    """The gateway hands ``mesh=`` to the engine, which refuses a mesh
+    without a "data" or "heads" dimension with the reference's text."""
     srv = _tiny_server(EngineConfig(slots=2, max_seq=32, chunk=4))
     rid = srv.submit("a b c", deadline=3)
     assert srv.status(rid) == "QUEUED"
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         ServeEngine(srv.pool, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        RoutedServer(srv.pool, srv.router, device="cpu", mesh=object())
+    clients = types.SimpleNamespace(mesh_dim_names=("clients",),
+                                    device_type="cpu")
+    with pytest.raises(ValueError, match="mesh carries axes"):
+        RoutedServer(srv.pool, srv.router, device="cpu", mesh=clients)
     # the harvest and fault hooks are ported: they build a server
     hooked = RoutedServer(srv.pool, srv.router, device="cpu",
                           harvest=HarvestStore(16, device="cpu"),
