@@ -76,13 +76,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import sharding as shd
+from repro_torch import tracing
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as mdl
@@ -166,7 +166,6 @@ class _Active:
     max_new: int               # total decode budget (prefix included)
     toks: np.ndarray           # the original prompt (for a preemption)
     deadline: Optional[int] = None   # absolute engine-step bound
-    t_submit: float = 0.0
     #: tokens emitted before the last preemption (this tenure prefilled
     #: prompt + prefix; ``chunks`` holds only the current tenure's)
     prefix: np.ndarray = dataclasses.field(default_factory=_empty_toks)
@@ -186,7 +185,6 @@ class _Pending:
     rid: int
     toks: np.ndarray           # (S,) int32 prompt tokens, unpadded
     max_new: int
-    t_submit: float = 0.0
     deadline: Optional[int] = None
     #: tokens emitted before a preemption: admission prefills prompt +
     #: prefix (recompute on resume)
@@ -202,8 +200,9 @@ class _Lane:
     """Per-model engine state: the KV pool (paged or uniform), the
     drafters' pools, and the host-side slot and page bookkeeping."""
 
-    def __init__(self, pm, ecfg: EngineConfig, device: torch.device,
-                 mesh=None):
+    def __init__(self, index: int, pm, ecfg: EngineConfig,
+                 device: torch.device, mesh=None):
+        self.index = index          #: the model's pool index
         self.pm = pm
         self.paged = bool(ecfg.page_size)
         if self.paged:
@@ -355,8 +354,6 @@ class ServeEngine:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_rejected = 0
-        #: queue wait per admitted request (submit → prefill), seconds
-        self.admission_lat: Deque[float] = collections.deque(maxlen=65536)
 
     def _region_len(self, n_tokens: int, max_new: int) -> int:
         return region_len(n_tokens, max_new, self.ecfg.chunk)
@@ -477,9 +474,9 @@ class ServeEngine:
         rid = self._next_rid
         self._next_rid += 1
         if lane is None:
-            lane = self._lanes[int(model_idx)] = _Lane(pm, self.ecfg,
-                                                       self.device, self.mesh)
-        pend = _Pending(rid, toks, max_new, t_submit=time.perf_counter(),
+            lane = self._lanes[int(model_idx)] = _Lane(
+                int(model_idx), pm, self.ecfg, self.device, self.mesh)
+        pend = _Pending(rid, toks, max_new,
                         deadline=(self._steps + int(deadline)
                                   if deadline is not None else None),
                         draft=draft_idx)
@@ -696,8 +693,8 @@ class ServeEngine:
         lane.pos[slot] = S          # first decode token writes K/V at S
         lane.active[slot] = _Active(
             req.rid, req.max_new, req.toks, deadline=req.deadline,
-            t_submit=req.t_submit, prefix=req.prefix,
-            emitted=len(req.prefix), preempts=req.preempts, draft=req.draft,
+            prefix=req.prefix, emitted=len(req.prefix),
+            preempts=req.preempts, draft=req.draft,
             region=len(req.toks) + req.max_new)
 
     def _pick_victim(self, lane: _Lane,
@@ -725,8 +722,7 @@ class ServeEngine:
         self._release_slot(lane, slot)
         self.preemptions += 1
         lane.queue.append(_Pending(
-            st.rid, st.toks, st.max_new, t_submit=st.t_submit,
-            deadline=st.deadline,
+            st.rid, st.toks, st.max_new, deadline=st.deadline,
             prefix=(np.asarray(prefix, np.int32) if prefix is not None
                     else _empty_toks()),
             preempts=st.preempts + 1, draft=st.draft))
@@ -790,14 +786,18 @@ class ServeEngine:
             slot = lane.free.pop()
             full = self._full_prompt(req)
             S = len(full)
-            toks_p = np.zeros((1, next_pow2(S)), np.int32)
-            toks_p[0, :S] = full
-            tok0, kv = _prefill(cfg, params, toks_p, S - 1, self.device)
-            lane.write_slot(lane.pool, lane.heads, kv, slot)
+            with tracing.span("engine.prefill", model=lane.index, rows=1,
+                              batch=1, bucket=next_pow2(S), tokens=S):
+                toks_p = np.zeros((1, next_pow2(S)), np.int32)
+                toks_p[0, :S] = full
+                tok0, kv = _prefill(cfg, params, toks_p, S - 1, self.device)
+                lane.write_slot(lane.pool, lane.heads, kv, slot)
+                tok0 = int(tok0[0])
+                tracing.mark("engine.first_token", rid=req.rid,
+                             model=lane.index)
             if self.ecfg.spec_k:
                 self._admit_draft(lane, slot, req.draft, full)
-            self.admission_lat.append(time.perf_counter() - req.t_submit)
-            self._activate(lane, req, slot, int(tok0[0]), S)
+            self._activate(lane, req, slot, tok0, S)
 
     def _admit_paged(self, lane: _Lane) -> None:
         """Paged admission: claim a decode slot + pages (FIFO — the head
@@ -839,32 +839,36 @@ class ServeEngine:
         cfg, params = lane.pm.cfg, lane.pm.params
         for S_b, items in sorted(groups.items()):
             B_b = next_pow2(len(items))
-            n_pp = -(-S_b // ps)        # pages the prefill bucket covers
-            toks_p = np.zeros((B_b, S_b), np.int32)
-            last = np.zeros((B_b,), np.int64)
-            pages_mat = np.zeros((B_b, n_pp), np.int32)   # pad rows → trash
-            for r, (req, slot, S, _, pages) in enumerate(items):
-                toks_p[r, :S] = self._full_prompt(req)
-                last[r] = S - 1
-                pages_mat[r] = pages[:n_pp]
-            tok0, kv = _prefill(cfg, params, toks_p, last, self.device)
-            if lane.slots is not None:      # only this process's slots
-                mine = [r for r, it in enumerate(items)
-                        if lane.slots.owns(it[1])]
-                kv = {n: {k: t[:, mine] for k, t in layer.items()}
-                      for n, layer in kv.items()}
-                pages_mat = pages_mat[mine]
-            if lane.heads is not None:
-                kv = lane.heads.kv(kv)
-            if len(pages_mat):
-                write_prefill_pages(lane.pool, kv, pages_mat)
-            tok0 = tok0.cpu().numpy()
-            now = time.perf_counter()
+            with tracing.span("engine.prefill", model=lane.index,
+                              rows=len(items), batch=B_b, bucket=S_b,
+                              tokens=sum(it[2] for it in items)):
+                n_pp = -(-S_b // ps)        # pages the prefill bucket covers
+                toks_p = np.zeros((B_b, S_b), np.int32)
+                last = np.zeros((B_b,), np.int64)
+                pages_mat = np.zeros((B_b, n_pp), np.int32)  # pad → trash
+                for r, (req, slot, S, _, pages) in enumerate(items):
+                    toks_p[r, :S] = self._full_prompt(req)
+                    last[r] = S - 1
+                    pages_mat[r] = pages[:n_pp]
+                tok0, kv = _prefill(cfg, params, toks_p, last, self.device)
+                if lane.slots is not None:      # only this process's slots
+                    mine = [r for r, it in enumerate(items)
+                            if lane.slots.owns(it[1])]
+                    kv = {n: {k: t[:, mine] for k, t in layer.items()}
+                          for n, layer in kv.items()}
+                    pages_mat = pages_mat[mine]
+                if lane.heads is not None:
+                    kv = lane.heads.kv(kv)
+                if len(pages_mat):
+                    write_prefill_pages(lane.pool, kv, pages_mat)
+                tok0 = tok0.cpu().numpy()
+                for req, *_ in items:
+                    tracing.mark("engine.first_token", rid=req.rid,
+                                 model=lane.index)
             for r, (req, slot, S, _, _) in enumerate(items):
                 if self.ecfg.spec_k:
                     self._admit_draft(lane, slot, req.draft,
                                       self._full_prompt(req))
-                self.admission_lat.append(now - req.t_submit)
                 self._activate(lane, req, slot, int(tok0[r]), S)
 
     def _finish(self, lane: _Lane, slot: int, st: _Active) -> None:
@@ -968,26 +972,28 @@ class ServeEngine:
         it, so nothing they write is ever attended."""
         cfg, ecfg, params = lane.pm.cfg, self.ecfg, lane.pm.params
         dev, r, heads = self.device, lane.rows, lane.heads
-        tok = torch.as_tensor(lane.tok[r], device=dev)
-        pos = torch.as_tensor(lane.pos[r], device=dev)
-        table = (torch.as_tensor(lane.pt.table[r], device=dev) if lane.paged
-                 else None)
-        out = []
-        for _ in range(ecfg.chunk):
-            if lane.paged:
-                logits, _ = mdl.decode_step_paged(
-                    params, lane.pool, cfg, tokens=tok[:, None],
-                    page_table=table, pos=pos, heads=heads)
-            else:
-                logits, _ = mdl.decode_step(params, lane.pool, cfg,
-                                            tokens=tok[:, None], pos=pos,
-                                            heads=heads)
-            out.append(tok)
-            tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
-            pos = pos + 1
-        # one device → host copy per chunk (on a slot-split lane after one
-        # all-gather): the emitted tokens + the carry
-        out_np = lane.host(torch.stack(out + [tok], dim=1))
+        with tracing.span("engine.decode", model=lane.index,
+                          rows=len(lane.active), passes=ecfg.chunk):
+            tok = torch.as_tensor(lane.tok[r], device=dev)
+            pos = torch.as_tensor(lane.pos[r], device=dev)
+            table = (torch.as_tensor(lane.pt.table[r], device=dev)
+                     if lane.paged else None)
+            out = []
+            for _ in range(ecfg.chunk):
+                if lane.paged:
+                    logits, _ = mdl.decode_step_paged(
+                        params, lane.pool, cfg, tokens=tok[:, None],
+                        page_table=table, pos=pos, heads=heads)
+                else:
+                    logits, _ = mdl.decode_step(params, lane.pool, cfg,
+                                                tokens=tok[:, None], pos=pos,
+                                                heads=heads)
+                out.append(tok)
+                tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+                pos = pos + 1
+            # one device → host copy per chunk (on a slot-split lane after
+            # one all-gather): the emitted tokens + the carry
+            out_np = lane.host(torch.stack(out + [tok], dim=1))
         active = np.zeros((ecfg.slots,), bool)
         active[list(lane.active)] = True
         lane.tok = np.where(active, out_np[:, -1], 0).astype(np.int32)
