@@ -923,11 +923,14 @@ def kernel_kmeans(torch, F, km, dev, data: dict) -> tuple:
     return assign, reduce
 
 
-#: the served models' prefill attention after the GQA repeat, S 4096
-FLASH_SHAPES = {"yi-6b": (1, 4096, 32, 128), "qwen2-1.5b": (1, 4096, 12, 128)}
+#: the served models' prefill attention after the GQA repeat, S 4096: one
+#: row each, and a bucket of four yi-6b rows as the document traffic admits
+FLASH_SHAPES = {"yi-6b": (1, 4096, 32, 128), "qwen2-1.5b": (1, 4096, 12, 128),
+                "yi-6b x4": (4, 4096, 32, 128)}
 
 
-def _check_flash(torch, fa, q, k, v, causal: bool, what: str) -> tuple:
+def _check_flash(torch, fa, q, k, v, causal: bool, what: str,
+                 got=None) -> tuple:
     """The kernel against its plain version. Both compute in f32 from the
     same inputs and round once to q's dtype; they differ only in the order
     of f32 sums (dot products, the online softmax's rescaling, p·v). The
@@ -935,9 +938,11 @@ def _check_flash(torch, fa, q, k, v, causal: bool, what: str) -> tuple:
     + 2e-5·A, where A = Σp|v|/Σp (the same attention over |v|) bounds
     |want| and sets the scale of every term of p·v, 2e-5 is the reference
     test's tolerance taken relative to it, and one ulp covers two f32
-    values on either side of a bf16 rounding boundary. Returns (max |Δ|,
-    max |Δ| / tolerance)."""
-    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    values on either side of a bf16 rounding boundary. ``got``: the
+    kernel's output on these inputs, if it has run already. Returns
+    (max |Δ|, max |Δ| / tolerance)."""
+    if got is None:
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     A = fa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
                                  causal=causal)
@@ -958,6 +963,26 @@ def _check_flash(torch, fa, q, k, v, causal: bool, what: str) -> tuple:
                              f"{w.reshape(-1)[i].item()!r} tolerance "
                              f"{tol.reshape(-1)[i].item()!r}")
     return float(d.max()), float((d / tol).max())
+
+
+def checked_flash(torch, fa, fn, what: str) -> tuple:
+    """Run ``fn`` with every launch of kernel #6 held against its plain
+    version on the same inputs, by ``_check_flash``. Returns fn's result
+    and, for each launch, (q's shape, max |Δ|, max |Δ| / tolerance)."""
+    kernel, seen = fa.flash_attention_cuda, []
+
+    def checked(q, k, v, *, causal=True):
+        out = kernel(q, k, v, causal=causal)
+        seen.append((tuple(q.shape), *_check_flash(
+            torch, fa, q, k, v, causal, f"{what}: flash {tuple(q.shape)}",
+            got=out)))
+        return out
+
+    fa.flash_attention_cuda = checked
+    try:
+        return fn(), seen
+    finally:
+        fa.flash_attention_cuda = kernel
 
 
 def _flash_times(torch, F, fa, q, k, v) -> dict:
@@ -1105,6 +1130,7 @@ def main_path(torch, dev) -> tuple:
     from repro_torch import routers
     from repro_torch.config import RouterConfig
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import model as mdl
     from repro_torch.serve.engine import EngineConfig
@@ -1144,8 +1170,8 @@ def main_path(torch, dev) -> tuple:
     # RoutedServer.generate on the paged engine: one routing call each
     for lam in (0.0, 2.0):
         rows.append(run_path(torch, ops, f"generate lam={lam}",
-                             gen_fn(srv, PROMPTS, lam), {RU: 1, PA: None},
-                             (UA, KA, KR, FA)))
+                             gen_fn(srv, PROMPTS, lam),
+                             {RU: 1, PA: None, FA: None}, (UA, KA, KR)))
 
     # RoutedServer.submit (one routing call per prompt), then step / drain
     subs = [(p, 0.0) for p in PROMPTS[:4]] + [(p, 2.0) for p in PROMPTS[4:8]]
@@ -1159,38 +1185,53 @@ def main_path(torch, dev) -> tuple:
         return check_lane_tokens(done, rids, pool)
 
     rows.append(run_path(torch, ops, "submit x8 + step + drain", submit_fn,
-                         {RU: len(subs), PA: None}, (UA, KA, KR, FA)))
+                         {RU: len(subs), PA: None, FA: None},
+                         (UA, KA, KR)))
 
     # each lane on its own, whatever a router would pick: both full-width
-    # models decode through the paged kernel, once per layer per step
+    # models decode through the paged kernel, once per layer per step, and
+    # prefill through the flash kernel, once per layer per bucket. A first,
+    # untimed pass holds each of the lane's flash launches against the
+    # plain version at the engine's own bucket shape
     for m, pm in enumerate(pool):
         def lane_fn(m=m, pm=pm):
             rids = {srv.engine.submit(m, srv._tokenize([p], pm.cfg, None)[0],
                                       MAX_NEW): m for p in PROMPTS[:4]}
             return check_lane_tokens(srv.drain(list(rids)), rids, pool)
-        row = run_path(torch, ops, f"lane {pm.name} x4", lane_fn, {PA: None},
-                       (UA, RU, KA, KR, FA))
-        if row["launches"][PA] % pm.cfg.n_layers:
-            raise AssertionError(f"lane {pm.name}: {row['launches'][PA]} "
-                                 f"paged launches, not a multiple of "
+        _, seen = checked_flash(torch, fa, lane_fn, f"lane {pm.name}")
+        if not seen or len(seen) % pm.cfg.n_layers:
+            raise AssertionError(f"lane {pm.name}: {len(seen)} checked flash "
+                                 f"launches, not a positive multiple of "
                                  f"{pm.cfg.n_layers} layers")
+        emit({"phase": "flash_served", "lane": pm.name,
+              "launches": len(seen),
+              "shapes": [list(s) for s in sorted({s for s, _, _ in seen})],
+              "max_abs_err": max(e for _, e, _ in seen),
+              "err_over_tol": max(r for _, _, r in seen)})
+        row = run_path(torch, ops, f"lane {pm.name} x4", lane_fn,
+                       {PA: None, FA: None}, (UA, RU, KA, KR))
+        for k in (PA, FA):
+            if row["launches"][k] % pm.cfg.n_layers:
+                raise AssertionError(f"lane {pm.name}: {row['launches'][k]} "
+                                     f"launches of {k}, not a multiple of "
+                                     f"{pm.cfg.n_layers} layers")
         rows.append(row)
 
     # the uniform slot pool and the per-call path: the contiguous kernel
     rows.append(run_path(torch, ops, "generate lam=2.0 uniform pool",
-                         gen_fn(srv_uniform, PROMPTS, 2.0), {RU: 1, UA: None},
-                         (PA, KA, KR, FA)))
+                         gen_fn(srv_uniform, PROMPTS, 2.0),
+                         {RU: 1, UA: None, FA: None}, (PA, KA, KR)))
     rows.append(run_path(torch, ops, "generate lam=2.0 engine=False",
                          gen_fn(srv, PROMPTS[:4], 2.0, engine=False),
-                         {RU: 1, UA: None}, (PA, KA, KR, FA)))
+                         {RU: 1, UA: None, FA: None}, (PA, KA, KR)))
 
     # the K-means, MF and Elo routers (num_models=2, d_emb 768) in front of
     # the same pool: K-means routes by the kmeans_assign kernel and a
     # gather; MF and Elo by router_utility on their latent factors (dh 32)
     # and anchor similarities (dh 20)
-    for fam, owns, others in (("kmeans", {KA: 1}, (UA, RU, KR, FA)),
-                              ("mf", {RU: 1}, (UA, KA, KR, FA)),
-                              ("elo", {RU: 1}, (UA, KA, KR, FA))):
+    for fam, owns, others in (("kmeans", {KA: 1}, (UA, RU, KR)),
+                              ("mf", {RU: 1}, (UA, KA, KR)),
+                              ("elo", {RU: 1}, (UA, KA, KR))):
         srv_f = RoutedServer(pool, pool_router(torch, dev, fam), device=dev)
         check_result(srv_f.generate(PROMPTS[:2], lam=2.0,
                                     max_new_tokens=MAX_NEW), pool, 2)  # warm-up
@@ -1198,7 +1239,7 @@ def main_path(torch, dev) -> tuple:
             rows.append(run_path(torch, ops,
                                  f"generate lam={lam} {fam} router",
                                  gen_fn(srv_f, PROMPTS, lam),
-                                 {**owns, PA: None}, others))
+                                 {**owns, PA: None, FA: None}, others))
 
     # full width, bf16: engine tokens vs per-request tokens (print only —
     # random weights leave near-ties in the argmax)
@@ -2068,9 +2109,9 @@ def resilience_replay(torch, dev) -> dict:
 
     KA, PA = "kmeans_assign", "paged_decode_attention"
     row = run_path(torch, ops, "resilience replay (6 cells)", fn,
-                   {KA: None, PA: None},
+                   {KA: None, PA: None, "flash_attention": None},
                    ("decode_attention", "router_utility",
-                    "kmeans_assign_reduce", "flash_attention"))
+                    "kmeans_assign_reduce"))
     emit({"phase": "resilience_replay", "cells": cells,
           "equal_to_reference": True, "resume_equal_to_solo": True})
     return row
@@ -2145,9 +2186,9 @@ def resilience_full_width(torch, dev, pool) -> dict:
         return ntok
 
     row = run_path(torch, ops, "resilience full width", fn,
-                   {"paged_decode_attention": None},
+                   {"paged_decode_attention": None, "flash_attention": None},
                    ("decode_attention", "router_utility", "kmeans_assign",
-                    "kmeans_assign_reduce", "flash_attention"))
+                    "kmeans_assign_reduce"))
     emit({"phase": "resilience_full_width", **info,
           "pages": ecfg.resolved_pages, "max_new": max_new,
           "seconds": row["seconds"], "tok_per_s": row["tok_per_s"],
@@ -2219,7 +2260,8 @@ def harvest_full_width(torch, dev, pool) -> tuple:
                    if not isinstance(v, Outcome))
 
     rows.append(run_path(torch, ops, "harvest submit x64 + drain", serve,
-                         {RU: HARVEST_N, PA: None}, (UA, KA, KR, FA)))
+                         {RU: HARVEST_N, PA: None, FA: None},
+                         (UA, KA, KR)))
     rids, routed = info["rids"], info["routed"]
     status = {r: srv.status(r) for r in rids}
     expired, cancelled = rids[5], rids[HARVEST_N - 1]
@@ -2370,8 +2412,8 @@ def failover(torch, dev, pool, router) -> list:
     from repro_torch.kernels import ops
     from repro_torch.serve.gateway import RoutedServer
     RU, PA = "router_utility", "paged_decode_attention"
-    others = ("decode_attention", "kmeans_assign", "kmeans_assign_reduce",
-              "flash_attention")
+    FA = "flash_attention"
+    others = ("decode_attention", "kmeans_assign", "kmeans_assign_reduce")
     n = 16
     subs = [(PROMPTS[i % len(PROMPTS)], (0.0, 2.0)[i % 2]) for i in range(n)]
     first = [int(router.route(torch.as_tensor(encode([p], 768), device=dev),
@@ -2401,7 +2443,7 @@ def failover(torch, dev, pool, router) -> list:
             return sum(len(v) for v in done.values())
 
         row = run_path(torch, ops, f"failover {name}", fn,
-                       {RU: n, PA: None}, others)
+                       {RU: n, PA: None, FA: None}, others)
         rows.append(row)
         counts = (got["served"], srv.backend_failures, srv.retries,
                   srv.failovers)
@@ -2554,11 +2596,13 @@ def fedloop_full_width(torch, dev, pool) -> list:
 
     rows = []
     _, row = run_fit(torch, ops, "fedloop A: phase 0, save, phase 1",
-                     run_a, {RU: n_ev[0] + n_ev[1], PA: None},
+                     run_a, {RU: n_ev[0] + n_ev[1], PA: None,
+                             "flash_attention": None},
                      phase="fedloop")
     rows.append(row)
     _, row = run_fit(torch, ops, "fedloop C: restore, phase 1", run_c,
-                     {RU: n_ev[1], PA: None}, phase="fedloop")
+                     {RU: n_ev[1], PA: None, "flash_attention": None},
+                     phase="fedloop")
     rows.append(row)
     tmp.cleanup()
 
@@ -2937,8 +2981,8 @@ def spec_full_width(torch, dev, pool) -> list:
                              "drafted by qwen2-1.5b, the others by "
                              "themselves")
     UA, PA = "decode_attention", "paged_decode_attention"
-    others = ("router_utility", "kmeans_assign", "kmeans_assign_reduce",
-              "flash_attention")
+    FA = "flash_attention"
+    others = ("router_utility", "kmeans_assign", "kmeans_assign_reduce")
     for m, d in pairs:                               # warm-up, uncounted
         _lane_run(plain.engine, pool3, m, n=1, max_new=8)
         _lane_run(spec.engine, pool3, m, draft=d, n=1, max_new=8)
@@ -2952,7 +2996,7 @@ def spec_full_width(torch, dev, pool) -> list:
             return sum(len(t) for t in base["toks"])
 
         name = f"lane {tgt} x4" + ("" if m == 2 else f" max_new {SPEC_NEW}")
-        prow = run_path(torch, ops, name, plain_fn, {PA: None},
+        prow = run_path(torch, ops, name, plain_fn, {PA: None, FA: None},
                         (UA,) + others)
         got = {}
 
@@ -2961,7 +3005,7 @@ def spec_full_width(torch, dev, pool) -> list:
             return sum(len(t) for t in got["toks"])
 
         srow = run_path(torch, ops, f"spec {tgt} drafted by {drf} x4",
-                        spec_fn, {UA: None, PA: None}, others)
+                        spec_fn, {UA: None, PA: None, FA: None}, others)
         c = got["c"]
         if c["spec_drafted"] != c["spec_accepted"] + c["spec_rejected"]:
             raise AssertionError(f"spec {tgt}: counters {c}")
@@ -3024,9 +3068,10 @@ def spec_reduced_f32(torch, dev) -> list:
         return n
 
     row = run_path(torch, ops, "spec reduced f32", fn,
-                   {"decode_attention": None, "paged_decode_attention": None},
+                   {"decode_attention": None, "paged_decode_attention": None,
+                    "flash_attention": None},
                    ("router_utility", "kmeans_assign",
-                    "kmeans_assign_reduce", "flash_attention"))
+                    "kmeans_assign_reduce"))
     emit({"phase": "spec_reduced_f32", "equal": True, "acceptance": res})
     return [row]
 
@@ -3133,12 +3178,13 @@ def arch_full_width(torch, dev) -> list:
         return fn
 
     rows = [run_path(torch, ops, "arch generate lam=0.0 (phi on the engine)",
-                     gen_fn(0.0), {RU: 1, PA: None}, (UA, KA, KR, FA)),
+                     gen_fn(0.0), {RU: 1, PA: None, FA: None},
+                     (UA, KA, KR)),
             run_path(torch, ops, "arch generate lam=2.0 (mamba2 per call)",
                      gen_fn(2.0), {RU: 1}, (UA, PA, KA, KR, FA)),
             run_path(torch, ops, "arch generate lam=0.0 engine=False",
-                     gen_fn(0.0, engine=False), {RU: 1, UA: None},
-                     (PA, KA, KR, FA))]
+                     gen_fn(0.0, engine=False), {RU: 1, UA: None, FA: None},
+                     (PA, KA, KR))]
     if rows[0]["launches"][PA] % phi.n_layers:
         raise AssertionError(f"phi lane: {rows[0]['launches'][PA]} paged "
                              f"launches, not a multiple of {phi.n_layers}")
@@ -3289,9 +3335,10 @@ def arch_reduced_f32(torch, dev) -> list:
         res[hub_cfg.name] = {"logits": list(logits.shape), "finite": True}
         return n
 
-    row = run_path(torch, ops, "arch reduced f32", fn, {UA: None, PA: None},
-                   ("router_utility", "kmeans_assign", "kmeans_assign_reduce",
-                    "flash_attention"))
+    row = run_path(torch, ops, "arch reduced f32", fn,
+                   {UA: None, PA: None, "flash_attention": None},
+                   ("router_utility", "kmeans_assign",
+                    "kmeans_assign_reduce"))
     emit({"phase": "arch_reduced_f32", "models": res})
     return [row]
 
@@ -3444,8 +3491,9 @@ def train_lm_phase(torch, dev) -> list:
 
 def lm_serve_full_width(torch, dev) -> list:
     """The ``launch/serve.py`` twin on qwen2-1.5b at full width: batch 4,
-    prompt 32, 16 new tokens, through its ``main`` on the card. Every
-    decode step runs ``decode_attention`` once per layer (16 × 28 = 448
+    prompt 32, 16 new tokens, through its ``main`` on the card. The
+    prefill runs ``flash_attention`` once per layer (28 launches) and every
+    decode step ``decode_attention`` once per layer (16 × 28 = 448
     launches); tokens lie in the vocabulary."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3456,7 +3504,8 @@ def lm_serve_full_width(torch, dev) -> list:
         torch, ops, "lm_serve_full_width",
         lambda: serve.main(["--arch", cfg.name, "--batch", str(B),
                             "--prompt-len", str(S), "--new-tokens", str(T)]),
-        {"decode_attention": T * cfg.n_layers}, phase="lm")
+        {"decode_attention": T * cfg.n_layers,
+         "flash_attention": cfg.n_layers}, phase="lm")
     toks = out["tokens"]
     if toks.shape != (B, T + 1) or int(toks.min()) < 0 or int(
             toks.max()) >= cfg.vocab:
@@ -3953,7 +4002,8 @@ def _mesh_lanes(torch, dev, ops, pool, router, shd) -> tuple:
             srv.drain([srv.submit(SOLO[0], lam=0.0, max_new_tokens=8)])
             (toks, counters), row = run_fit(
                 torch, ops, f"serving_mesh {lane} {name}",
-                lambda: _mesh_serve(srv, lams), {RU: len(SOLO), kern: None},
+                lambda: _mesh_serve(srv, lams),
+                {RU: len(SOLO), kern: None, "flash_attention": None},
                 phase="serving_mesh")
             rows.append(row)
             res[name] = {"tokens": toks, "counters": counters,
@@ -3990,7 +4040,8 @@ def _mesh_spec(torch, dev, ops, pool, shd) -> tuple:
         (toks, c), row = run_fit(
             torch, ops, f"serving_mesh spec qwen3-8b <- qwen2-1.5b {name}",
             lambda: _lane_run(srv.engine, pool3, 2, draft=0, max_new=8),
-            {UA: None, PA: None}, phase="serving_mesh")
+            {UA: None, PA: None, "flash_attention": None},
+            phase="serving_mesh")
         rows.append(row)
         res[name] = {"tokens": [t.tolist() for t in toks], "counters": c,
                      "launches": {k: row["launches"][k] for k in (UA, PA)},
@@ -4052,7 +4103,8 @@ def _mesh_loop(torch, dev, ops, pool, shd) -> tuple:
     for name, loop in loops.items():
         sync_s, row = run_fit(torch, ops, f"serving_mesh fedloop {name}",
                               lambda: drive(loop),
-                              {RU: len(events), PA: None},
+                              {RU: len(events), PA: None,
+                               "flash_attention": None},
                               phase="serving_mesh")
         rows.append(row)
         res[name] = {"seconds": row["seconds"], "sync_seconds": sync_s}

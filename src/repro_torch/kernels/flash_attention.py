@@ -36,6 +36,12 @@ _HEAD_DIMS = (64, 128)
 flash_attention_plain = flash_attention_ref
 
 
+def takes(q) -> bool:
+    """Whether the kernel takes q's dtype and head dim (k and v must then
+    match q's shape and dtype)."""
+    return q.dtype in _DTYPE_CODE and q.shape[-1] in _HEAD_DIMS
+
+
 def pv_split_emulation(q, k, v, *, causal: bool = True, split: bool = True):
     """The bf16 kernel's p·v arithmetic in plain PyTorch (for tests): p in
     f32 from the f32 scores, then p·v as p_hi·v + p_lo·v with p_hi =
@@ -79,13 +85,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         raise ValueError(f"flash_attention: q, k, v must share one shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} (repeat GQA heads first)")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if not takes(q) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; the kernel takes one of float32, "
-                         "bfloat16 for all three")
+                         f"{v.dtype}, head dim {q.shape[-1]}; the kernel "
+                         "takes one of float32, bfloat16 for all three and "
+                         f"a head dim in {_HEAD_DIMS}")
     B, S, H, hd = q.shape
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {_HEAD_DIMS}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("flash_attention: inputs must share one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -132,6 +132,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return _fa.flash_attention_plain(q, k, v, causal=causal)
 
 
+#: whether the flash kernel takes q's dtype and head dim
+flash_takes = _fa.takes
+
+
 _ALL_COUNTS = (_ru.COUNTS, _da.COUNTS, _km.COUNTS, _fa.COUNTS)
 
 

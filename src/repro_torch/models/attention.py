@@ -2,9 +2,21 @@
 (PyTorch counterpart of ``repro/models/attention.py``, dense parts).
 
 Paths:
-  * ``attn_forward`` — prefill attention, computed in query chunks so the
-    S×S score matrix is never materialized. Plain PyTorch: the reference
-    runs prefill outside any Pallas kernel too.
+  * ``attn_forward`` — prefill attention, by one of two paths.
+    ``_flash_prefill`` decides, from what the inputs show alone: CUDA
+    inputs (``kops.resolve_impl``, so ``REPRO_TORCH_KERNELS=ref`` forces
+    the plain path), a causal configuration with no sliding window, head
+    dim 64 or 128, bf16 or f32, and no gradient needed (the kernel has no
+    backward). Those go through the ``flash_attention`` kernel, one launch
+    a layer, with each KV head repeated to its g query heads first where
+    g > 1 (query head h reads KV head h // g, the ``"flat"`` order).
+    Everything else, every CPU run and every training step included,
+    takes ``chunked_attention``: plain PyTorch in query chunks, so the
+    S×S score matrix is never materialized, as the reference runs
+    prefill.
+    The two differ in rounding only: the kernel keeps p in f32 for p·v
+    (``kernels/flash_attention.py``), the chunked path rounds it to V's
+    dtype.
   * ``attn_decode_step`` — one-token decode against a contiguous
     (B, Hkv, W, hd) cache; on CUDA through the ``decode_attention``
     kernel, on the CPU through ``_masked_grouped_attn``.
@@ -90,13 +102,11 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
     Returns (B,S,Hq*hd). ``layout="grouped"`` never expands KV to the
     query heads; ``"flat"`` repeats each KV head to its g query heads
     first (the reference's layout for head-sharded meshes) and computes
-    the same values."""
+    the same values (``attn_forward`` refuses any other layout)."""
     if layout == "flat":
         g = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    elif layout != "grouped":
-        raise ValueError(f"unknown attention layout {layout!r}")
     B, S, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -122,15 +132,38 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
     return torch.cat(outs, dim=1)
 
 
+def _flash_prefill(q, k, v, cfg: ModelConfig, window) -> bool:
+    """Whether prefill attention takes the ``flash_attention`` kernel
+    (see the module doc): decided from the inputs' device, the kernels'
+    flag, the configuration's mask, head dim, dtype and whether a gradient
+    is needed."""
+    return (kops.resolve_impl(None, q) == "cuda" and cfg.causal
+            and window is None and kops.flash_takes(q)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (q, k, v))))
+
+
 def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, *, window: Optional[int] = None,
                  q_chunk: int = 512, return_kv: bool = False,
                  layout: str = "grouped"):
+    if layout not in ("grouped", "flat"):
+        raise ValueError(f"unknown attention layout {layout!r}")
     q, k, v = _project_qkv(p, x, cfg, positions)
     win = window if window is not None else (
         cfg.sliding_window if cfg.sliding_window_always else None)
-    out = chunked_attention(q, k, v, causal=cfg.causal, window=win,
-                            q_chunk=q_chunk, layout=layout) @ p["wo"]
+    if _flash_prefill(q, k, v, cfg, win):
+        B, S, Hq, hd = q.shape
+        g = Hq // k.shape[2]
+        kg, vg = ((k, v) if g == 1 else
+                  (t.repeat_interleave(g, dim=2) for t in (k, v)))
+        att = kops.flash_attention(q.contiguous(), kg.contiguous(),
+                                   vg.contiguous(),
+                                   causal=True).reshape(B, S, Hq * hd)
+    else:
+        att = chunked_attention(q, k, v, causal=cfg.causal, window=win,
+                                q_chunk=q_chunk, layout=layout)
+    out = att @ p["wo"]
     if return_kv:  # prefill: post-RoPE k/v become the decode cache
         return out, {"k": k.transpose(1, 2).contiguous(),
                      "v": v.transpose(1, 2).contiguous()}
